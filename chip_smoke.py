@@ -154,12 +154,14 @@ def kernel_checks(torch, dev, o: int, v: int) -> dict:
     want = K.triples_finale_plain(*fin)
     torch.cuda.synchronize()
     check(bool(torch.equal(got, again)), "triples_finale: two launches differ")
+    plain_ms = cuda_ms(torch, lambda: K.triples_finale_plain(*fin))
     rows["triples_finale"] = dict(
         got=got, want=want,
         ms=cuda_ms(torch, lambda: K.triples_finale(*fin)),
-        plain_ms=cuda_ms(torch, lambda: K.triples_finale_plain(*fin)),
-        # one torch expression of the same function over all panels
-        library_ms=cuda_ms(torch, lambda: K.triples_finale_plain(*fin)),
+        plain_ms=plain_ms,
+        # the plain version is already one torch expression of the same
+        # function over all panels, so the library call is that same call
+        library_ms=plain_ms,
         bound=bound_ms(clen * v**3 * 11, 2 * clen * v**3 * 8 + (clen + v + 1) * 8),
         source="afesp_tpu_torch/csrc/triples_finale.cu",
         replaces="afesp_tpu/ops/triples_pallas.py:1042 (triples_finale, body _finale_kernel :46)",
