@@ -16,7 +16,7 @@ import sys
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="els",
-        description="AFESP on PyTorch/CUDA: RHF / MP2 / spin-orbital CCSD(T)",
+        description="AFESP on PyTorch/CUDA: RHF / MP2 / CCSD and the (T) family",
     )
     p.add_argument(
         "workdir",

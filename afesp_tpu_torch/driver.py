@@ -1,15 +1,15 @@
 """Pipeline driver — the program `main` equivalent (main.F90:24-186).
 
 Port of `afesp_tpu/driver.py:28-243` (`RunResult`, `run_calculation`,
-`_final_breakdown`) for the spin-orbital path:
+`_final_breakdown`).  Dispatch on (restricted, calc_type):
 
-  RHF -> MP2_spatial -> CCSD_spinorb -> (T)_spinorb
+  restricted:   RHF -> MP2_spatial -> CCSD_spatial -> (T)_spatial family
+  spin-orbital: RHF -> MP2_spatial -> CCSD_spinorb -> (T)_spinorb
 
 with the reference's timing lines and final energy-breakdown table
 (labels are scraped by the binding-curve wrapper, so they are API).
-The restricted CCSD and triples family, the device mesh, the JAX
-compile cache, warmup and profiler are not ported: a calc_type that
-needs restricted CCSD, or `mesh_devices != 0`, raises "not ported yet".
+The device mesh, the JAX compile cache, warmup and profiler are not
+ported: `mesh_devices != 0` raises "not ported yet".
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ from .io import dat
 from .io.report import Reporter
 from .methods import hf as hf_mod
 from .methods import mp2 as mp2_mod
+from .methods.ccsd_spatial import CCSDResult, do_ccsd_spatial
 from .methods.ccsd_spinorb import CCSDSpinorbResult, do_ccsd_spinorb
+from .methods.triples_spatial import TriplesResult, do_ccsd_t_spatial
 from .methods.triples_spinorb import do_ccsd_t_spinorb
 
 
@@ -39,10 +41,12 @@ class RunResult:
     e_mp2: float = 0.0
     e_ccsd: float = 0.0
     e_ccsd_t: float = 0.0  # spinorb CCSD(T)
+    triples: TriplesResult | None = None  # the restricted triples family
+    t1_diagnostic: float = 0.0
     e_highest: float = 0.0
     # the stage results a caller may want to continue from
     hf: hf_mod.HFResult | None = None
-    cc: CCSDSpinorbResult | None = None
+    cc: CCSDSpinorbResult | CCSDResult | None = None
 
     @property
     def total_energy(self) -> float:
@@ -66,10 +70,6 @@ def run_calculation(
         cfg = read_els_in(workdir)
     if cfg.mesh_devices != 0:
         raise NotImplementedError("mesh_devices: multi-device runs are not ported yet")
-    if cfg.wants_ccsd and cfg.restricted:
-        raise NotImplementedError(
-            f"calc_type {cfg.calc_type_str}: restricted CCSD is not ported yet"
-        )
 
     rep.section("Integral read-in")
     rep.write(" Getting number of basis functions...")
@@ -98,7 +98,21 @@ def run_calculation(
         res.e_mp2 = mp2.e_mp2
         res.e_highest = mp2.e_mp2
 
-        if cfg.wants_ccsd:
+        if cfg.wants_ccsd and cfg.restricted:
+            t_cc = time.perf_counter()
+            cc = do_ccsd_spatial(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev)
+            rep.stage_time(
+                "Time taken for restricted CCSD:", time.perf_counter() - t_cc
+            )
+            res.cc = cc
+            res.e_ccsd = cc.e_ccsd
+            res.t1_diagnostic = cc.t1_diagnostic
+            res.e_highest = cc.e_ccsd
+            if cfg.wants_triples:
+                tr = do_ccsd_t_spatial(sys_, cc, cfg, hf.levels, rep)
+                res.triples = tr
+                res.e_highest = tr.e_highest
+        elif cfg.wants_ccsd:
             t_cc = time.perf_counter()
             cc = do_ccsd_spinorb(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev)
             rep.stage_time(
@@ -132,9 +146,37 @@ def _final_breakdown(rep: Reporter, res: RunResult) -> None:
         if ct in (CalcType.CCSD, CalcType.CCSD_T):
             rep.breakdown_line("CCSD correlation energy:", res.e_ccsd)
             rep.breakdown_line("CCSD energy:", res.e_ccsd + e0)
-            if ct is CalcType.CCSD_T:
+            if ct is CalcType.CCSD_T and cfg.restricted:
+                tr = res.triples
+                rep.breakdown_line("CCSD[T] correlation energy:", tr.e_ccsd_t)
+                rep.breakdown_line("CCSD[T] energy:", tr.e_ccsd_t + e0)
+                if cfg.ccsd_t_paren:
+                    rep.breakdown_line("CCSD(T) correlation energy:", tr.e_ccsd_tt)
+                    rep.breakdown_line("CCSD(T) energy:", tr.e_ccsd_tt + e0)
+                if cfg.ccsd_t_renorm or cfg.ccsd_t_comp_renorm:
+                    rep.breakdown_line("R-CCSD[T] correlation energy:", tr.e_rccsd_t)
+                    rep.breakdown_line("R-CCSD[T] energy:", tr.e_rccsd_t + e0)
+                    if cfg.ccsd_t_paren:
+                        rep.breakdown_line("R-CCSD(T) correlation energy:", tr.e_rccsd_tt)
+                        rep.breakdown_line("R-CCSD(T) energy:", tr.e_rccsd_tt + e0)
+                    if cfg.ccsd_t_comp_renorm:
+                        rep.breakdown_line("CR-CCSD[T] correlation energy:", tr.e_crccsd_t)
+                        rep.breakdown_line("CR-CCSD[T] energy:", tr.e_crccsd_t + e0)
+                        if cfg.ccsd_t_paren:
+                            rep.breakdown_line(
+                                "CR-CCSD(T) correlation energy:", tr.e_crccsd_tt
+                            )
+                            rep.breakdown_line("CR-CCSD(T) energy:", tr.e_crccsd_tt + e0)
+            elif ct is CalcType.CCSD_T:
                 rep.breakdown_line("CCSD(T) correlation energy:", res.e_ccsd_t)
                 rep.breakdown_line("CCSD(T) energy:", res.e_ccsd_t + e0)
+    if ct in (CalcType.CCSD, CalcType.CCSD_T) and cfg.restricted:
+        rep.breakdown_bar()
+        rep.breakdown_line("T1 diagnostic:", res.t1_diagnostic)
+    if cfg.ccsd_t_renorm or cfg.ccsd_t_comp_renorm:
+        rep.breakdown_line("D[T]:", res.triples.D_T)
+        if cfg.ccsd_t_paren:
+            rep.breakdown_line("D(T):", res.triples.D_TT)
     rep.breakdown_bar()
     rep.breakdown_line("Total electronic energy:", res.e_hf + res.e_highest)
     rep.breakdown_line("Nuclear repulsion:", res.e_nuc)

@@ -29,6 +29,8 @@ class CCState:
     t2: torch.Tensor
     t1_raw: torch.Tensor  # last un-extrapolated update (returned on convergence)
     t2_raw: torch.Tensor
+    t1_in: torch.Tensor  # amplitudes that fed the last iteration (the
+    t2_in: torch.Tensor  # "stale" pair the CR-CC intermediates consume)
     t2_old: torch.Tensor  # for the RMS (ccsd.f90:1776)
     diis_T: torch.Tensor  # (nerr, size) amplitude history
     diis_E: torch.Tensor  # (nerr, size) error history
@@ -41,7 +43,7 @@ def init_cc_state(t1: torch.Tensor, t2: torch.Tensor, n_errmat: int) -> CCState:
     size = t1.numel() + t2.numel()
     z = lambda *s: t1.new_zeros(s)
     return CCState(
-        t1=t1, t2=t2, t1_raw=t1, t2_raw=t2, t2_old=t2,
+        t1=t1, t2=t2, t1_raw=t1, t2_raw=t2, t1_in=t1, t2_in=t2, t2_old=t2,
         diis_T=z(n_errmat, size), diis_E=z(n_errmat, size),
         gram=z(n_errmat, n_errmat), slot=-1, n_active=0,
     )
@@ -123,7 +125,8 @@ def cc_step(
     t2e = new_flat[t1n.numel() :].reshape(t2n.shape)
 
     new_state = CCState(
-        t1=t1e, t2=t2e, t1_raw=t1n, t2_raw=t2n, t2_old=t2n,
+        t1=t1e, t2=t2e, t1_raw=t1n, t2_raw=t2n, t1_in=state.t1, t2_in=state.t2,
+        t2_old=t2n,
         diis_T=T, diis_E=E, gram=gram, slot=slot, n_active=n,
     )
     return new_state, torch.stack([e, rms2])

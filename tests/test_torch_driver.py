@@ -1,6 +1,7 @@
-"""Port parity: the whole slice through afesp_tpu_torch.run_calculation
-against the JAX driver on the generated 24-bf H2O, on the CPU, plus the
-CLI's error path and what the port refuses."""
+"""Port parity: both slices through afesp_tpu_torch.run_calculation
+against the JAX driver on the generated 24-bf H2O, on the CPU — the
+spin-orbital CCSD(T) and every restricted calc_type — plus the CLI's
+error path and what the port refuses."""
 
 import functools
 import io
@@ -11,6 +12,7 @@ from torch_fixtures import breakdown_block, table_energies, write_els_in, write_
 
 import afesp_tpu.driver as jdriver
 from afesp_tpu.io.report import Reporter as JaxReporter
+from afesp_tpu.methods.triples_spatial import do_ccsd_t_spatial as jax_ccsd_t_spatial
 from afesp_tpu.methods.triples_spinorb import do_ccsd_t_spinorb as jax_ccsd_t
 from afesp_tpu_torch.cli import main as cli_main
 from afesp_tpu_torch.driver import run_calculation
@@ -86,17 +88,93 @@ def test_short_pipelines_match_jax(tmp_path, h2o, calc):
 
 
 @pytest.mark.parametrize(
-    "calc,extra", [("CCSD_spatial", ""), ("CRCCSD(T)_spatial", ""),
-                   ("CCSD(T)_spinorb", "mesh_devices = 2,\n")],
+    "calc,extra,eri_npy_only", [("CRCCSD(T)_spatial", "mesh_devices = 2,\n", False),
+                                ("CCSD_spatial", "", True),
+                                ("CCSD(T)_spinorb", "mesh_devices = 2,\n", False)],
 )
-def test_unported_paths_raise(tmp_path, h2o, calc, extra):
+def test_unported_paths_raise(tmp_path, h2o, calc, extra, eri_npy_only):
     for f in h2o.iterdir():
-        (tmp_path / f.name).symlink_to(f)
+        if eri_npy_only and f.name == "eri.dat":
+            # the JAX package's binary ERI tier; the port reads text only
+            (tmp_path / "eri.npy").write_bytes(b"")
+        else:
+            (tmp_path / f.name).symlink_to(f)
     (tmp_path / "els.in").unlink()
     write_els_in(tmp_path, calc, extra)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         run_calculation(tmp_path, Reporter(stream=io.StringIO()), device="cpu")
     assert cli_main([str(tmp_path), "--device", "cpu"]) == 999
+
+
+RESTRICTED = ["RHF", "MP2_spatial", "CCSD_spatial", "CCSD[T]_spatial", "CCSD(T)_spatial",
+              "RCCSD[T]_spatial", "RCCSD(T)_spatial", "CRCCSD[T]_spatial",
+              "CRCCSD(T)_spatial"]
+
+
+def _stage(tmp_path, h2o, calc, extra=""):
+    for f in h2o.iterdir():
+        if f.name != "els.in":
+            (tmp_path / f.name).symlink_to(f)
+    write_els_in(tmp_path, calc, extra)
+    return tmp_path
+
+
+@pytest.mark.parametrize("calc", RESTRICTED)
+def test_restricted_calc_types_match_jax(tmp_path, h2o, calc, capsys):
+    """Each of the nine restricted calc_types through the port's driver
+    and CLI: the breakdown block equals the JAX driver's (its triples at
+    f64, what ccsd_precision="f64" selects there) line for line, with
+    equal SCF and CC iteration counts and the same stage-time labels."""
+    wd = _stage(tmp_path, h2o, calc)
+    jres, jtext = _run_jax(wd)
+    res, text = _run_port(wd)
+    assert breakdown_block(text) == breakdown_block(jtext)
+    assert abs(res.total_energy - jres.total_energy) < 1e-10
+    for header in ("delta RMS D", "delta RMS T2"):
+        if header in jtext:
+            assert len(table_energies(text, header)) == len(table_energies(jtext, header))
+    labels = [ln.split(":")[0] for ln in text.split("\n") if "Time taken for" in ln]
+    jlabels = [ln.split(":")[0] for ln in jtext.split("\n") if "Time taken for" in ln]
+    assert labels == jlabels
+    capsys.readouterr()
+    assert cli_main([str(wd), "--device", "cpu"]) == 0
+    assert breakdown_block(capsys.readouterr().out) == breakdown_block(text)
+
+
+def test_restricted_totals_match_jax_hybrid_triples(tmp_path, h2o, port_run_cr):
+    """Against the JAX driver with its spatial triples at "hybrid" (f32
+    panel GEMMs, what its CPU runs use with ccsd_precision="hybrid"):
+    every triples value and the total within 1e-8 Ha."""
+    wd = _stage(tmp_path, h2o, "CRCCSD(T)_spatial")
+    rep = JaxReporter(stream=io.StringIO())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jdriver, "do_ccsd_t_spatial",
+                   functools.partial(jax_ccsd_t_spatial, precision="hybrid"))
+        jres = jdriver.run_calculation(wd, rep)
+    res, _ = port_run_cr
+    assert jres.triples.precision_used == "hybrid"
+    for key in ("e_ccsd_t", "e_ccsd_tt", "e_rccsd_t", "e_rccsd_tt", "e_crccsd_t",
+                "e_crccsd_tt", "D_T", "D_TT"):
+        assert abs(getattr(res.triples, key) - getattr(jres.triples, key)) < 1e-8, key
+    assert abs(res.total_energy - jres.total_energy) < 1e-8
+
+
+@pytest.fixture(scope="module")
+def port_run_cr(h2o, tmp_path_factory):
+    return _run_port(_stage(tmp_path_factory.mktemp("cr"), h2o, "CRCCSD(T)_spatial"))
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_bug_compat_through_the_driver(tmp_path, h2o, compat):
+    """ccsd_t_spatial_bug_compat on and off for plain CCSD(T)_spatial: the
+    breakdown equals the JAX driver's, and with the flag the CCSD(T) line
+    repeats the CCSD[T] value, as the reference prints it."""
+    extra = f"ccsd_t_spatial_bug_compat = {'.true.' if compat else '.false.'},\n"
+    wd = _stage(tmp_path, h2o, "CCSD(T)_spatial", extra)
+    _, jtext = _run_jax(wd)
+    res, text = _run_port(wd)
+    assert breakdown_block(text) == breakdown_block(jtext)
+    assert (res.triples.e_ccsd_tt == res.triples.e_ccsd_t) == compat
 
 
 def test_cli_error_path_exits_999(tmp_path, capsys):

@@ -91,7 +91,8 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 def test_build_names_track_the_sources():
     names = {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert names == {"triples_fused", "triples_finale"}
+    assert names == {"triples_fused", "triples_finale", "triples_fused_spatial",
+                     "triples_tiled_spatial", "triples_finale_spatial"}
     paths = {_build.lib_path(n) for n in names}
-    assert len(paths) == 2 and all(p.parent == _build.BUILD_DIR for p in paths)
+    assert len(paths) == 5 and all(p.parent == _build.BUILD_DIR for p in paths)
     assert all(_build._source_hash() in p.name for p in paths)

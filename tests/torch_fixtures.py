@@ -104,3 +104,22 @@ def random_triples_problem(o: int, v: int, seed: int = 7):
     e = np.sort(rng.standard_normal(o + v))
     e[o:] += 4.0
     return t1, t2, vovv, ovoo, oovv, e[:o], e[o:]
+
+
+def random_spatial_problem(o: int, v: int, seed: int = 11):
+    """Random restricted-triples inputs, numpy f64, in the argument order
+    (t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I_vovv'', I_ooov'') — the
+    generator of tests/test_triples_tiled.py.  t2 and v_oovv carry the
+    pair-exchange symmetry X[i,j,a,b] = X[j,i,b,a] that the sorted-triple
+    orbit identity of the z3/y sums needs."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s) * 0.02
+    sym = lambda x: (x + x.transpose(1, 0, 3, 2)) / 2
+    e = np.sort(rng.standard_normal(o + v))
+    e[o:] += 4.0
+    return (
+        r(o, v), sym(r(o, o, v, v)),
+        r(v, v, o, v), r(o, o, v, o), sym(r(o, o, v, v)),
+        e[:o], e[o:],
+        r(v, o, v, v), r(o, o, o, v),
+    )
