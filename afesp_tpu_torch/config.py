@@ -93,8 +93,9 @@ class Config:
     ccsd_t_spatial_bug_compat: bool = False
     # New (no reference counterpart — upstream MPI is an unticked TODO,
     # README.md:35): device-mesh width for the multi-chip CC/triples
-    # paths of the JAX package.  0 (default) = single device; the port's
-    # driver refuses any other value (multi-device is not ported yet).
+    # paths of the JAX package.  0 (default) and 1 = single device, -1 =
+    # every visible device; the port's driver refuses a width of 2 or
+    # more (multi-device is not ported yet).
     mesh_devices: int = 0
 
     # Raw text of the input file (echoed into the output, integrals.f90:240-249)

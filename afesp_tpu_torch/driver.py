@@ -8,8 +8,11 @@ Port of `afesp_tpu/driver.py:28-243` (`RunResult`, `run_calculation`,
 
 with the reference's timing lines and final energy-breakdown table
 (labels are scraped by the binding-curve wrapper, so they are API).
-The device mesh, the JAX compile cache, warmup and profiler are not
-ported: `mesh_devices != 0` raises "not ported yet".
+The JAX compile cache, warmup and profiler are not ported.  The device
+mesh follows JAX's width rule (`afesp_tpu/driver.py:116-129`): 0 and 1
+run on one device, -1 means every visible device (the card count on a
+CUDA device, 1 on the CPU); a width of 2 or more raises "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -53,6 +56,14 @@ class RunResult:
         return self.e_hf + self.e_highest + self.e_nuc
 
 
+def mesh_width(mesh_devices: int, dev: torch.device) -> int:
+    """The device count `mesh_devices` asks for: -1 (any negative) is
+    every visible device, 0 and 1 are one."""
+    if mesh_devices < 0:
+        return torch.cuda.device_count() if dev.type == "cuda" else 1
+    return max(mesh_devices, 1)
+
+
 def run_calculation(
     workdir: str | Path = ".",
     rep: Reporter | None = None,
@@ -68,7 +79,7 @@ def run_calculation(
     t0 = time.perf_counter()
     if cfg is None:
         cfg = read_els_in(workdir)
-    if cfg.mesh_devices != 0:
+    if mesh_width(cfg.mesh_devices, dev) >= 2:
         raise NotImplementedError("mesh_devices: multi-device runs are not ported yet")
 
     rep.section("Integral read-in")

@@ -9,12 +9,17 @@ tensor (pq|rs) stays on the device and feeds CCSD directly.
 MP2 energy (mp2.f90:418-440):
     E2 = sum_{ijab} (ia|jb) [2(ia|jb) - (ib|ja)] / (e_i+e_j-e_a-e_b)
 
-The >=140-bf streaming tier (`STREAM_NBASIS`) is not ported yet.
+The JAX package streams at nbasis >= `STREAM_NBASIS` only on a TPU, or
+at any size under `AFESP_FORCE_STREAM=1` (`afesp_tpu/methods/mp2.py:266`);
+everywhere else it runs this dense path at any size.  The port never
+runs on a TPU, so it is dense at every nbasis, and raises "not ported
+yet" only where JAX would be forced to stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from pathlib import Path
 
@@ -27,9 +32,16 @@ from ..io.fcidump import write_fcidump
 from ..io.report import Reporter
 from .hf import HFResult
 
-# Above this basis size the JAX package switches to its streaming tier
-# (`afesp_tpu/methods/mp2.py:48`).
+# Above this basis size the JAX package switches to its streaming tier on
+# a TPU (`afesp_tpu/methods/mp2.py:48`).  Kept for parity of the two
+# modules; the port reads it nowhere, since it never runs on a TPU.
 STREAM_NBASIS = 140
+
+
+def _force_stream() -> bool:
+    """AFESP_FORCE_STREAM=1: the JAX package's hook that routes any size
+    through the streaming tier (`afesp_tpu/methods/mp2.py:335`)."""
+    return os.environ.get("AFESP_FORCE_STREAM", "") == "1"
 
 
 @dataclasses.dataclass
@@ -78,10 +90,9 @@ def do_mp2_spatial(
     dev = default_device(device)
     rep = rep or Reporter()
     t_start = time.perf_counter()
-    n = sys_.nbasis
-    if n >= STREAM_NBASIS:
+    if _force_stream():
         raise NotImplementedError(
-            f"nbasis >= {STREAM_NBASIS}: the streaming tier is not ported yet"
+            "AFESP_FORCE_STREAM=1: the streaming tier is not ported yet"
         )
     rep.section("MP2")
     rep.write(" Performing AO to MO ERI transformation...")

@@ -27,7 +27,7 @@ from ._build import load
 F64 = torch.float64
 _VP = ctypes.c_void_p
 _REDUCE_BLOCKS = 132 * 8  # finale partials per reduction: 8 blocks per SM
-# scratch budget of one K1 chunk: its t3c and t3d panels (C, v, v, v) f64
+# scratch budget of one K1 chunk: its t3c panels (C, v, v, v) f64
 FUSED_SCRATCH_BYTES = 2e9
 
 
@@ -107,6 +107,9 @@ triples_finale.launches = 0
 
 # --------------------------------------------------------------- K1 -----
 
+# rows (bc) of K1's GEMM block tile, csrc/triples_fused.cu BM
+GEMM_BM = 192
+
 
 def fused_operands(t2, vovv, ovoo):
     """The K-concatenated GEMM operands of K1 (layout of the TPU
@@ -121,10 +124,56 @@ def fused_operands(t2, vovv, ovoo):
     return L, R.reshape(o, v + o, v * v).contiguous()
 
 
+def fused_tile_dims(o: int, v: int) -> tuple[int, int, int]:
+    """(Np, Kp, NNp): a padded to a multiple of 8 (the MMA's N), K = v + o
+    to an even count (16-byte copies never straddle two terms), bc = v*v
+    to a multiple of GEMM_BM (the MMA's M)."""
+    return -(-v // 8) * 8, -(-(v + o) // 2) * 2, -(-(v * v) // GEMM_BM) * GEMM_BM
+
+
+def fused_tile_operands(t2, vovv, ovoo):
+    """The operands of K1's GEMM as its tiles read them, zero-padded to
+    fused_tile_dims:
+      Lbuf (2, o, o, Np, Kp): Lbuf[0] = L of fused_operands, Lbuf[1] = -L
+      Rbuf (o, Kp, NNp):      R of fused_operands
+    The negated copy carries the two minus terms, so the kernel's single
+    accumulator takes all three products."""
+    o, v = t2.shape[0], t2.shape[2]
+    Np, Kp, NNp = fused_tile_dims(o, v)
+    Lbuf = t2.new_zeros((2, o, o, Np, Kp))
+    Lbuf[0, :, :, :v, :v] = t2
+    Lbuf[0, :, :, :v, v : v + o] = ovoo.permute(2, 3, 1, 0)
+    Lbuf[1] = -Lbuf[0]
+    Rbuf = t2.new_zeros((o, Kp, NNp))
+    Rbuf[:, :v, : v * v] = vovv.permute(1, 0, 2, 3).reshape(o, v, v * v)
+    Rbuf[:, v : v + o, : v * v] = t2.permute(1, 0, 2, 3).reshape(o, o, v * v)
+    return Lbuf, Rbuf
+
+
+def fused_term_offsets(ii, jj, kk, o: int, v: int) -> torch.Tensor:
+    """(C, 6) int64: for each triple the element offsets into Lbuf and
+    Rbuf of its three terms' blocks, (L0, R0, L1, R1, L2, R2):
+      +L[j,k] R[i],   -L[i,k] R[j],   -L[j,i] R[k]."""
+    Np, Kp, NNp = fused_tile_dims(o, v)
+    ii, jj, kk = (x.long() for x in (ii, jj, kk))
+    lblock = torch.stack([jj * o + kk, o * o + ii * o + kk, o * o + jj * o + ii], 1)
+    rblock = torch.stack([ii, jj, kk], 1)
+    return torch.stack([lblock * (Np * Kp), rblock * (Kp * NNp)], 2).reshape(-1, 6).contiguous()
+
+
+def energy_blocks(v: int) -> int:
+    """Blocks of K1's energy pass a triple, one partial each: (a, c)
+    tiles of 32 a side times ranges of 16 b."""
+    return (-(-v // 32)) ** 2 * -(-v // 16)
+
+
 def fused_chunk_len(total: int, v: int) -> int:
-    """Triples per K1 chunk: the t3c/t3d scratch stays under
-    FUSED_SCRATCH_BYTES, and the chunks are of near-equal length."""
-    cmax = max(1, min(65535, int(FUSED_SCRATCH_BYTES // (2 * 8 * v**3))))
+    """Triples per K1 chunk: the t3c scratch, one (v, v, v) panel a
+    triple, stays under FUSED_SCRATCH_BYTES, the energy pass's grid keeps
+    under 65535 blocks along z (ceil(v / 16) a triple), and the chunks
+    are of near-equal length."""
+    zmax = 65535 // -(-v // 16)
+    cmax = max(1, min(zmax, int(FUSED_SCRATCH_BYTES // (8 * v**3))))
     nchunk = -(-total // cmax)
     return -(-total // nchunk)
 
@@ -158,11 +207,13 @@ def triples_fused_plain(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk) -> torch
     return total
 
 
-def triples_fused(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk) -> torch.Tensor:
+def triples_fused(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk, split=None) -> torch.Tensor:
     """K1.  Spin-orbital (T) over the given (i,j,k) triples: t1 (o,v),
     t2/oovv (o,o,v,v), vovv (v,o,v,v), ovoo (o,v,o,o), e_o (o,), e_v (v,),
     ii/jj/kk (C,) integer.  Returns the sum over the triples of
-    P(t3c)(P(t3c)+P(t3d))/D; the caller applies the strict-grid 1/6."""
+    P(t3c)(P(t3c)+P(t3d))/D; the caller applies the strict-grid 1/6.
+    With a list `split` (CUDA only), CUDA events time each launch and the
+    list gets one (numerator ms, energy ms) pair per chunk."""
     dev = t1.device
     if dev.type == "cpu":
         return triples_fused_plain(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk)
@@ -181,39 +232,55 @@ def triples_fused(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk) -> torch.Tenso
     for key, t in (("ii", ii), ("jj", jj), ("kk", kk)):
         if t.device != dev or t.dtype not in (torch.int32, torch.int64) or t.shape != (n,):
             raise ValueError(f"triples_fused: {key} must be a ({n},) integer tensor on {dev}")
-    idx = torch.stack([x.to(torch.int32) for x in (ii, jj, kk)])
-    if n and (int(idx.min()) < 0 or int(idx.max()) >= o):
-        raise ValueError(f"triples_fused: triple indices outside [0, {o})")
     if n == 0:
         return t1.new_zeros(())
+    idx = torch.stack([x.to(torch.int32) for x in (ii, jj, kk)])
     lib = load("triples_fused")
-    chunk = lib.triples_fused_chunk_launch
-    chunk.argtypes = [_VP] * 7 + [ctypes.c_int] * 3 + [_VP] * 5 + [ctypes.c_int, _VP]
-    chunk.restype = ctypes.c_int
+    numerator = lib.triples_fused_numerator_launch
+    numerator.argtypes = [_VP] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong, _VP, _VP]
+    numerator.restype = ctypes.c_int
+    energy = lib.triples_fused_energy_launch
+    energy.argtypes = [_VP] * 8 + [ctypes.c_int] * 3 + [_VP, _VP]
+    energy.restype = ctypes.c_int
     finish = lib.triples_sum_launch
     finish.argtypes = [_VP, ctypes.c_longlong, _VP, _VP]
     finish.restype = ctypes.c_int
 
-    L, R = fused_operands(t2, vovv, ovoo)
+    Np, Kp, NNp = fused_tile_dims(o, v)
+    Lbuf, Rbuf = fused_tile_operands(t2, vovv, ovoo)
+    desc = fused_term_offsets(*idx, o, v)
+    clen = fused_chunk_len(n, v)
+    t3c = torch.empty((clen, v, v, v), dtype=F64, device=dev)
+    per_triple = energy_blocks(v)
+    partials = torch.empty(n * per_triple, dtype=F64, device=dev)
+    out = torch.empty((), dtype=F64, device=dev)
+    # the bounds check reads the indices back: the card builds the
+    # operands above meanwhile, and nothing has gathered with them yet
+    lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+    if lo < 0 or hi >= o:
+        raise ValueError(f"triples_fused: triple indices outside [0, {o})")
     eo_sum = _triple_sums(e_o, *idx.long()).contiguous()
     ii32, jj32, kk32 = (x.contiguous() for x in idx)
-    clen = fused_chunk_len(n, v)
-    nchunk = -(-n // clen)
-    t3c = torch.empty((clen, v, v, v), dtype=F64, device=dev)
-    t3d = torch.empty_like(t3c)
-    partials = torch.empty(nchunk * _REDUCE_BLOCKS, dtype=F64, device=dev)
-    out = torch.empty((), dtype=F64, device=dev)
     stream = _stream(dev)
-    for q in range(nchunk):
-        c0 = q * clen
+    for c0 in range(0, n, clen):
         C = min(clen, n - c0)
-        rc = chunk(
-            _ptr(L), _ptr(R), _ptr(oovv), _ptr(t1),
-            _ptr(ii32[c0:]), _ptr(jj32[c0:]), _ptr(kk32[c0:]), C, o, v,
-            _ptr(eo_sum[c0:]), _ptr(e_v), _ptr(t3c), _ptr(t3d),
-            _ptr(partials[q * _REDUCE_BLOCKS:]), _REDUCE_BLOCKS, stream,
-        )
+        marks = None if split is None else [torch.cuda.Event(enable_timing=True)
+                                            for _ in range(3)]
+        if marks:
+            marks[0].record()
+        rc = numerator(_ptr(Lbuf), _ptr(Rbuf), _ptr(desc[c0:]), C, v, Kp, Np, NNp,
+                       _ptr(t3c), stream)
         _raise_on("triples_fused", rc)
+        if marks:
+            marks[1].record()
+        rc = energy(_ptr(t3c), _ptr(oovv), _ptr(t1), _ptr(ii32[c0:]), _ptr(jj32[c0:]),
+                    _ptr(kk32[c0:]), _ptr(eo_sum[c0:]), _ptr(e_v), C, o, v,
+                    _ptr(partials[c0 * per_triple:]), stream)
+        _raise_on("triples_fused", rc)
+        if marks:
+            marks[2].record()
+            marks[2].synchronize()
+            split.append((marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])))
     _raise_on("triples_fused", finish(_ptr(partials), partials.numel(), _ptr(out), stream))
     triples_fused.launches += 1
     return out

@@ -6,7 +6,7 @@
 Drives `afesp_tpu_torch` — never the JAX package — through its two
 paths on H2O/cc-pVTZ (58 basis functions): CCSD(T)_spinorb (10 occupied
 and 106 virtual spin orbitals) and restricted CRCCSD(T)_spatial (5
-occupied and 53 virtual spatial orbitals), in eight phases, one line
+occupied and 53 virtual spatial orbitals), in nine phases, one line
 each with its wall time:
 
   1. the device: torch's name and count, and nvidia-smi's name and
@@ -21,7 +21,10 @@ each with its wall time:
      (both sides f64, only the order of summation differs; a sum nearer
      0 than 1e-6 of the largest is held to that floor instead), and two
      launches agree bit for bit; kernel, plain and library times by CUDA
-     events at the paths' shapes;
+     events at the paths' shapes, and K1's split between its numerator
+     and energy-pass launches; then K1 alone at the spin-orbital dimer's
+     shape (o=20, v=212, 1140 strict triples), held and timed the same
+     way (kernel over 2 launches, plain over 1);
   4. the spin-orbital path, `run_calculation` on a staged copy of
      data/h2o-cc-pvtz-2.00_104.45 with the committed eri.dat, default
      "fused" triples tier (K1): HF, MP2, CCSD and CCSD(T) totals within
@@ -37,7 +40,11 @@ each with its wall time:
   7. its "tiled" (K4) and "pallas" (K5) triples tiers on the same
      converged amplitudes: the six triples energies, D[T] and D(T) within
      1e-9 of the fused tier and of JAX's f64 values;
-  8. one JSON line of the kernels: launches on the path that runs each,
+  8. information, not a gate: CCSD_spatial writes its amplitudes on the
+     CPU and on the card, and the CC iterations each file takes to
+     restart a run on the card (the restarted energies are held to
+     1e-8 of the writers');
+  9. one JSON line of the kernels: launches on the path that runs each,
      times, bound and errors.
 
 Every check raises on failure (nonzero exit, no `ok` line).  The last
@@ -84,9 +91,11 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(torch, fn, reps: int = 5) -> float:
-    """Mean device time of fn() over `reps` calls after one warm-up."""
-    fn()
+def cuda_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
+    """Mean device time of fn() over `reps` calls, after one warm-up
+    unless the caller has just run it (`warm=False`)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -128,6 +137,55 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def k1_bound(o: int, v: int, n: int, args) -> tuple[float, str]:
+    """K1 over n triples: 2 v^3 3(v+o) GEMM flops and ~16 an element for
+    t3d, P and the sum; inputs read once, the sum written once."""
+    in_bytes = sum(x.numel() * 8 for x in args) + 3 * n * 8
+    return bound_ms(n * v**3 * (6 * (v + o) + 5 + 11), in_bytes + 8)
+
+
+def k1_split(K, args, idx, reps: int = 3) -> list[float]:
+    """K1's numerator and energy-pass launches, each summed over the
+    chunks by CUDA events around it: the mean [numerator, energy] ms of
+    `reps` calls (launches counted as any call's)."""
+    tot = [0.0, 0.0]
+    for _ in range(reps):
+        split = []
+        K.triples_fused(*args, *idx, split=split)
+        tot = [t + sum(s[q] for s in split) / reps for q, t in enumerate(tot)]
+    return tot
+
+
+def k1_dimer_check(torch, dev, o: int = 20, v: int = 212) -> dict:
+    """K1 at the spin-orbital dimer's shape (data/h2o-dimer-cc-pvtz: 20
+    occupied, 212 virtual spin orbitals, 1140 strict triples) on seeded
+    random inputs: held against its plain version to KERNEL_RTOL, two
+    launches bit-identical, kernel ms over 2 launches after a warm-up,
+    the plain version's ms over one launch, its bound and its split."""
+    from afesp_tpu_torch.methods import triples_spinorb as T
+    from afesp_tpu_torch.ops import triples_cuda as K
+
+    args = random_problem(torch, dev, o, v)
+    idx = tuple(torch.as_tensor(x, dtype=torch.long, device=dev)
+                for x in T.strict_triple_list(o))
+    n = idx[0].numel()
+    got = K.triples_fused(*args, *idx)
+    again = K.triples_fused(*args, *idx)
+    want = K.triples_fused_plain(*args, *idx)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, again)), f"triples_fused (o={o}, v={v}): two launches differ")
+    g, w = float(got), float(want)
+    rel = abs(g - w) / max(abs(w), 1e-300)
+    check(rel <= KERNEL_RTOL, f"triples_fused (o={o}, v={v}): kernel {g!r} vs plain {w!r} "
+                              f"(rel {rel:.3e})")
+    b_ms, b_by = k1_bound(o, v, n, args)
+    return dict(shape=f"o={o}, v={v}, {n} strict triples", max_abs_err=abs(g - w),
+                max_rel_err=rel, ms=cuda_ms(torch, lambda: K.triples_fused(*args, *idx), 2),
+                plain_ms=cuda_ms(torch, lambda: K.triples_fused_plain(*args, *idx), 1,
+                                 warm=False),
+                bound_ms=b_ms, bound_by=b_by, split_ms=k1_split(K, args, idx, 1))
+
+
 def kernel_checks(torch, dev, o: int, v: int) -> dict:
     from afesp_tpu_torch.methods import triples_spinorb as T
     from afesp_tpu_torch.ops import triples_cuda as K
@@ -148,13 +206,13 @@ def kernel_checks(torch, dev, o: int, v: int) -> dict:
                         if not isinstance(x, int) else x for x in T.strict_plan(o, v))
     library = lambda: 6.0 * T._triples_total_strict(
         *args, pi, pj, pk, clen=clen, precision="f64")
-    in_bytes = sum(x.numel() * 8 for x in args) + 3 * n * 8
     rows["triples_fused"] = dict(
         got=got, want=want,
         ms=cuda_ms(torch, lambda: K.triples_fused(*args, ii, jj, kk)),
         plain_ms=cuda_ms(torch, lambda: K.triples_fused_plain(*args, ii, jj, kk)),
         library_ms=cuda_ms(torch, library),
-        bound=bound_ms(n * v**3 * (6 * (v + o) + 5 + 11), in_bytes + 8),
+        split_ms=k1_split(K, args, (ii, jj, kk)),
+        bound=k1_bound(o, v, n, args),
         source="afesp_tpu_torch/csrc/triples_fused.cu",
         replaces="afesp_tpu/ops/triples_pallas.py:926 (triples_fused, body _fused_kernel :308)",
     )
@@ -404,6 +462,43 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
     return spatial_launches["triples_fused_spatial"], tier_launches
 
 
+def amplitudes_restart(torch, spatial: dict) -> None:
+    """Information, not a gate: CCSD_spatial on the pVTZ inputs writes
+    its amplitudes on the CPU and on the card, and each file restarts a
+    run on the card (ccsd_read_amplitudes).  MO column signs may differ
+    between the CPU's and the card's Fock builds, so a CPU-written file
+    need not restart in one iteration (README.md, the port's caveats)."""
+    import io
+
+    from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.io.report import Reporter
+
+    els = spatial["els_in"].replace('"CRCCSD(T)_spatial"', '"CCSD_spatial"')
+    check(els != spatial["els_in"], "the restricted els.in names no CRCCSD(T)_spatial")
+    head, _, tail = els.rpartition("/")
+    els = head + "ccsd_write_amplitudes = .true.,\nccsd_read_amplitudes = .true.,\n/" + tail
+    info = {}
+    with phase("amplitudes_restart", info):
+        iters = {}
+        for writer in ("cpu", "cuda"):
+            wd_w, wd_r = stage_workdir(els), stage_workdir(els)
+            try:
+                res = run_calculation(wd_w, Reporter(stream=io.StringIO()), device=writer)
+                shutil.copy(wd_w / "amplitudes_out.npz", wd_r / "amplitudes_in.npz")
+                again = run_calculation(wd_r, Reporter(stream=io.StringIO()))
+                torch.cuda.synchronize()
+                iters[writer] = (res.cc.iterations, again.cc.iterations)
+                check(abs(again.e_ccsd - res.e_ccsd) <= ENERGY_TOL,
+                      f"restart from the {writer} file: CCSD {again.e_ccsd!r} vs {res.e_ccsd!r}")
+            finally:
+                shutil.rmtree(wd_w, ignore_errors=True)
+                shutil.rmtree(wd_r, ignore_errors=True)
+        info.update(cc_iterations_fresh_cpu=iters["cpu"][0],
+                    restart_on_card_from_cpu_file=iters["cpu"][1],
+                    cc_iterations_fresh_card=iters["cuda"][0],
+                    restart_on_card_from_card_file=iters["cuda"][1])
+
+
 def main() -> int:
     import torch
 
@@ -457,6 +552,12 @@ def main() -> int:
         rows.update(spatial_kernel_checks(torch, dev, o=spatial["nocc"], v=spatial["nvirt"],
                                           timed=True))
         info.update({n: f"rel={r['max_rel_err']:.3e},ms={r['ms']:.4f}" for n, r in rows.items()})
+        info["triples_fused_split_ms"] = json.dumps(rows["triples_fused"]["split_ms"])
+    # K1 at the spin-orbital dimer's shape, seeded random inputs
+    info = {}
+    with phase("kernels_o20_v212", info):
+        dimer_k1 = k1_dimer_check(torch, dev)
+        info.update(triples_fused=json.dumps(dimer_k1))
     # the spatial kernels at the dimer's and the trimer's shapes (K3 and K5
     # up to the dimer's), seeded random inputs: held, and the kernels timed
     for o, v in ((10, 106), (15, 159)):
@@ -528,6 +629,7 @@ def main() -> int:
         shutil.rmtree(wd, ignore_errors=True)
 
     spatial_launches, tier_launches = spatial_phases(torch, kernels, spatial)
+    amplitudes_restart(torch, spatial)
 
     # the path that runs each kernel: K1 the spin-orbital main path, K2 its
     # "pallas" tier, K3 the restricted path, K4 and K5 its "tiled" and
@@ -545,6 +647,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"],
+            **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(f"{smi}", flush=True)

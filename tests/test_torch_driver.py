@@ -12,11 +12,13 @@ from torch_fixtures import breakdown_block, table_energies, write_els_in, write_
 
 import afesp_tpu.driver as jdriver
 from afesp_tpu.io.report import Reporter as JaxReporter
+from afesp_tpu.methods import mp2 as jmp2
 from afesp_tpu.methods.triples_spatial import do_ccsd_t_spatial as jax_ccsd_t_spatial
 from afesp_tpu.methods.triples_spinorb import do_ccsd_t_spinorb as jax_ccsd_t
 from afesp_tpu_torch.cli import main as cli_main
 from afesp_tpu_torch.driver import run_calculation
 from afesp_tpu_torch.io.report import Reporter
+from afesp_tpu_torch.methods import mp2 as tmp2
 
 
 @pytest.fixture(scope="module")
@@ -175,6 +177,49 @@ def test_bug_compat_through_the_driver(tmp_path, h2o, compat):
     res, text = _run_port(wd)
     assert breakdown_block(text) == breakdown_block(jtext)
     assert (res.triples.e_ccsd_tt == res.triples.e_ccsd_t) == compat
+
+
+def test_dense_path_above_stream_nbasis(tmp_path, h2o, monkeypatch):
+    """Off a TPU the JAX package runs the dense path at any nbasis; so
+    does the port.  With STREAM_NBASIS at 20 in both packages the 24-bf
+    H2O's CCSD_spatial runs in both, with equal breakdowns and CCSD corr
+    within 1e-10."""
+    monkeypatch.setattr(jmp2, "STREAM_NBASIS", 20)
+    monkeypatch.setattr(tmp2, "STREAM_NBASIS", 20)
+    wd = _stage(tmp_path, h2o, "CCSD_spatial")
+    jres, jtext = _run_jax(wd)
+    res, text = _run_port(wd)
+    assert res.sys.nbasis >= 20
+    assert abs(res.e_ccsd - jres.e_ccsd) < 1e-10
+    assert breakdown_block(text) == breakdown_block(jtext)
+
+
+def test_forced_streaming_raises(tmp_path, h2o, monkeypatch):
+    """AFESP_FORCE_STREAM=1, where the JAX package streams at any size,
+    is refused: the streaming tier is not ported yet."""
+    monkeypatch.setenv("AFESP_FORCE_STREAM", "1")
+    wd = _stage(tmp_path, h2o, "CCSD_spatial")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        run_calculation(wd, Reporter(stream=io.StringIO()), device="cpu")
+    assert cli_main([str(wd), "--device", "cpu"]) == 999
+
+
+@pytest.fixture(scope="module")
+def jax_width1_text(h2o, tmp_path_factory):
+    wd = _stage(tmp_path_factory.mktemp("w1"), h2o, "CCSD_spatial", "mesh_devices = 1,\n")
+    return _run_jax(wd)[1]
+
+
+@pytest.mark.parametrize("width", [1, -1])
+def test_single_device_mesh_widths_run(tmp_path, h2o, jax_width1_text, width):
+    """mesh_devices = 1, and -1 with one device visible (the CPU), run on
+    one device as in the JAX driver: the breakdown block equals the JAX
+    driver's at mesh_devices = 1 line for line, and no mesh line is
+    printed."""
+    wd = _stage(tmp_path, h2o, "CCSD_spatial", f"mesh_devices = {width},\n")
+    _, text = _run_port(wd)
+    assert breakdown_block(text) == breakdown_block(jax_width1_text)
+    assert "-device mesh" not in text and "-device mesh" not in jax_width1_text
 
 
 def test_cli_error_path_exits_999(tmp_path, capsys):

@@ -47,9 +47,12 @@ def _problem(dev, o, v, seed=7):
 # (o, v): the small test shape, the H2O/cc-pVTZ shape, and nvirt > 128
 # (the TPU kernel's cap, which K1 does not have)
 SHAPES = [(6, 10), (10, 106), (4, 130)]
+# K1 also at the spin-orbital dimer's shape (1140 triples, 44 chunks) and
+# at ragged ones: v not a multiple of 8 and v*v odd, and v + o odd too
+K1_SHAPES = SHAPES + [(20, 212), (5, 37), (4, 37)]
 
 
-@pytest.mark.parametrize("o,v", SHAPES)
+@pytest.mark.parametrize("o,v", K1_SHAPES)
 def test_k1_kernel_matches_plain(o, v):
     dev = _card()
     args, idx = _problem(dev, o, v)

@@ -79,7 +79,10 @@ def test_mp2_and_fcidump_match_jax(jax_run, tmp_path):
     assert (tmp_path / "FCIDUMP").read_text() == (jax_run["wd"] / "FCIDUMP").read_text()
 
 
-def test_mp2_streaming_tier_not_ported(jax_run):
+def test_mp2_streaming_tier_not_ported(jax_run, monkeypatch):
+    """Only AFESP_FORCE_STREAM=1 asks for the streaming tier off a TPU;
+    the port refuses it."""
+    monkeypatch.setenv("AFESP_FORCE_STREAM", "1")
     st = from_jax(device="cpu", sys_=jax_run["sys_"])
     st["sys_"].nbasis = tmp2.STREAM_NBASIS
     cfg = tcfg.Config()

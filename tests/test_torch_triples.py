@@ -165,9 +165,111 @@ def test_wrappers_refuse_other_devices(problem):
 
 
 def test_fused_chunking_bounds_scratch():
+    """K1's chunk holds one t3c panel of (v, v, v) f64 a triple (t3d is
+    never stored) within FUSED_SCRATCH_BYTES."""
     for total, v in ((120, 106), (1, 10), (560, 150), (10_000, 8)):
         clen = K.fused_chunk_len(total, v)
         assert 1 <= clen <= min(total, 65535)
-        assert 2 * 8 * clen * v**3 <= max(K.FUSED_SCRATCH_BYTES, 2 * 8 * v**3)
+        assert 8 * clen * v**3 <= max(K.FUSED_SCRATCH_BYTES, 8 * v**3)
+        assert clen * -(-v // 16) <= 65535
         nchunk = -(-total // clen)
         assert (nchunk - 1) * clen < total <= nchunk * clen
+
+
+# (o, v): the test shape, a ragged one (v not a multiple of 8, v*v odd)
+# and one with v + o odd as well (K padded to an even count)
+TILE_SHAPES = [(O, V), (5, 37), (4, 37)]
+
+
+def _tile_problem(o, v):
+    args = _torch(random_triples_problem(o, v, seed=5))
+    idx = tuple(torch.as_tensor(x, dtype=torch.long) for x in JT.strict_triple_list(o))
+    return args, idx
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k1_tile_operands_match_fused_operands(o, v):
+    """The padded operands K1's GEMM tiles read hold L, -L and R of
+    fused_operands and zeros elsewhere; the padding stays under 6% of a
+    and of bc at the paths' shapes."""
+    args, _ = _tile_problem(o, v)
+    L, R = K.fused_operands(*args[1:4])
+    Lbuf, Rbuf = K.fused_tile_operands(*args[1:4])
+    Np, Kp, NNp = K.fused_tile_dims(o, v)
+    assert Lbuf.shape == (2, o, o, Np, Kp) and Rbuf.shape == (o, Kp, NNp)
+    assert Np % 8 == 0 and Kp % 2 == 0 and NNp % K.GEMM_BM == 0
+    assert torch.equal(Lbuf[0, :, :, :v, : v + o], L)
+    assert torch.equal(Lbuf[1], -Lbuf[0])
+    assert torch.equal(Rbuf[:, : v + o, : v * v], R)
+    pad_l, pad_r = Lbuf[0].clone(), Rbuf.clone()
+    pad_l[:, :, :v, : v + o] = 0
+    pad_r[:, : v + o, : v * v] = 0
+    assert not pad_l.any() and not pad_r.any()
+    for oo, vv in ((10, 106), (20, 212)):
+        Np, _, NNp = K.fused_tile_dims(oo, vv)
+        assert Np / vv - 1 < 0.06 and NNp / vv**2 - 1 < 0.06
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k1_tile_gemm_gives_t3c(o, v):
+    """The kernel's GEMM as its tiles address it, in torch: for each
+    triple, row kg of the concatenated K axis (3 Kp rows) lies in term
+    kg // Kp at row kg % Kp of the blocks that fused_term_offsets points
+    at; A[bc, kg] comes from Rbuf, B[kg, a] from Lbuf, and the product
+    lands at t3c[p, a, bc] of the (C, v, v, v) scratch.  It equals the
+    t3c of the plain version, L[j,k]R[i] - L[i,k]R[j] - L[j,i]R[k]."""
+    args, (ii, jj, kk) = _tile_problem(o, v)
+    Np, Kp, NNp = K.fused_tile_dims(o, v)
+    Lbuf, Rbuf = K.fused_tile_operands(*args[1:4])
+    desc = K.fused_term_offsets(ii, jj, kk, o, v)
+    assert desc.shape == (len(ii), 6) and desc.dtype == torch.int64
+    kg = torch.arange(3 * Kp)
+    term = (kg >= Kp).long() + (kg >= 2 * Kp).long()
+    kl = kg - term * Kp
+    m, a = torch.arange(NNp), torch.arange(Np)
+    lflat, rflat = Lbuf.reshape(-1), Rbuf.reshape(-1)
+    L, R = K.fused_operands(*args[1:4])
+    want = L[jj, kk] @ R[ii] - L[ii, kk] @ R[jj] - L[jj, ii] @ R[kk]
+    scratch = torch.empty((len(ii), v, v, v), dtype=F64)
+    for p in range(len(ii)):
+        loff, roff = desc[p, 0::2], desc[p, 1::2]
+        A = rflat[roff[term][None, :] + kl[None, :] * NNp + m[:, None]]      # (NNp, 3Kp)
+        B = lflat[loff[term][:, None] + a[None, :] * Kp + kl[:, None]]       # (3Kp, Np)
+        scratch.view(len(ii), v, v * v)[p] = (A @ B)[: v * v, :v].T
+    assert torch.allclose(scratch.reshape(len(ii), v, v * v), want, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k1_energy_pass_indexing(o, v):
+    """K1's energy pass as it indexes, in torch: x[abc], x[bac] and x[cba]
+    read from the t3c scratch, the three permutations of t3d rebuilt from
+    t1 and the triple's W planes (never stored), then the sum over one
+    partial for each 32 x 32 (a, c) tile and range of 16 b of each
+    triple, in the kernel's order.  It equals triples_fused_plain."""
+    args, (ii, jj, kk) = _tile_problem(o, v)
+    t1, t2, vovv, ovoo, oovv, e_o, e_v = args
+    L, R = K.fused_operands(t2, vovv, ovoo)
+    x = (L[jj, kk] @ R[ii] - L[ii, kk] @ R[jj] - L[jj, ii] @ R[kk]).reshape(-1, v, v, v)
+    W = oovv.reshape(o, o, v, v)
+    av = torch.arange(v)
+    a, b, c = av[:, None, None], av[None, :, None], av[None, None, :]
+    tiles, nb = -(-v // 32), -(-v // 16)
+    assert K.energy_blocks(v) == nb * tiles**2
+    partials = torch.zeros(len(ii), nb, tiles, tiles, dtype=F64)
+    for p, (i, j, k) in enumerate(zip(ii.tolist(), jj.tolist(), kk.tolist())):
+        xf = x[p].reshape(-1)
+        px = xf[(a * v + b) * v + c] - xf[(b * v + a) * v + c] - xf[(c * v + b) * v + a]
+        def y(r, s, q):  # t3d at (r, s, q): t1[i,r]W[j,k,s,q] - t1[j,r]W[i,k,s,q] + ...
+            return (t1[i, r] * W[j, k, s, q] - t1[j, r] * W[i, k, s, q]
+                    + t1[k, r] * W[i, j, s, q])
+        py = y(a, b, c) - y(b, a, c) - y(c, b, a)
+        d = e_o[i] + e_o[j] + e_o[k] - e_v[a] - e_v[b] - e_v[c]
+        term = px * (px + py) / d
+        for br in range(nb):
+            for at in range(tiles):
+                for ct in range(tiles):
+                    partials[p, br, at, ct] = term[at * 32 : at * 32 + 32, br * 16 : br * 16 + 16,
+                                                   ct * 32 : ct * 32 + 32].sum()
+    got = float(partials.reshape(-1).sum())
+    want = float(K.triples_fused_plain(*args, ii, jj, kk))
+    assert abs(got - want) <= 1e-12 * abs(want)
