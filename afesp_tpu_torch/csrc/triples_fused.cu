@@ -39,14 +39,16 @@
 //     the end of K and of a.  The operands stream from L2; a taller tile
 //     re-reads each L block fewer times.  The tile is written once into
 //     the chunk's t3c scratch, (C, v, v, v).
-//  2. energy_kernel: a block takes one triple, a 32 x 32 tile of (a, c)
-//     and walks a range of 16 b.  x[abc] and x[bac] are read along c, x[cba]
-//     along a and turned through shared memory, so every read of t3c is
+//  2. energy_kernel: triples_common.cuh's energy walk (shared with K2):
+//     a block takes one triple, a 32 x 32 tile of (a, c) and walks a
+//     range of 16 b; x[abc] and x[bac] are read along c, x[cba] along a
+//     and turned through shared memory, so every read of t3c is
 //     coalesced.  t3d is never stored: its three permutations are rebuilt
 //     from t1 and the triple's three W planes (v^2 each, cache-resident).
-//     No element's index is recovered by division.  Fixed per-thread
-//     order, a fixed tree per block, one partial per block.
-// The sum of the partials is triples_common.cuh's (shared with K2).
+//     Fixed per-thread order, a fixed tree per block, one partial per
+//     block.
+// The GEMM's tile and K loop are dmma_tile.cuh's (shared with K4's
+// stage 1); the sum of the partials is triples_common.cuh's.
 // Every output element is written by one thread and every sum has a
 // fixed order: two runs agree bit for bit.  No nvirt cap.
 //
@@ -56,6 +58,7 @@
 
 #include <cuda_runtime.h>
 
+#include "dmma_tile.cuh"
 #include "triples_common.cuh"
 
 namespace {
@@ -70,8 +73,6 @@ constexpr int kGemmThreads = 32 * WARPS_M * WARPS_N;
 constexpr int WM = BM / WARPS_M;        // 32: two m16 tiles a warp
 constexpr int WN = BN / WARPS_N;        // 56: seven n8 tiles a warp
 constexpr int MT = WM / 16, NT = WN / 8;
-constexpr int MMA_K = 4;                // mma.sync m16n8k4 .f64
-constexpr int NA = 16 * MMA_K / 32, NB = MMA_K * 8 / 32;
 // shared strides, 4 (mod 16) doubles: the fragment loads of a warp touch
 // every bank pair twice, the least two wavefronts of 8-byte loads allow
 constexpr int LDA = BM + 4;             // As[k][m]
@@ -79,28 +80,7 @@ constexpr int LDB = BK + 4;             // Bs[n][k]
 constexpr int A_STAGE = BK * LDA, B_STAGE = BN * LDB;
 constexpr int kGemmSmem = STAGES * (A_STAGE + B_STAGE) * 8;
 static_assert(BM * BK / 2 % kGemmThreads == 0, "A stage copies");
-static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % MMA_K == 0, "tiles");
-
-__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[NA],
-                                        const double (&b)[NB]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async16(double* smem, const double* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % dmma::MMA_K == 0, "tiles");
 
 // Row kg of the concatenated K axis lies in term kg / Kp at row kg % Kp.
 __device__ __forceinline__ int term_of(int kg, int Kp) { return (kg >= Kp) + (kg >= 2 * Kp); }
@@ -126,7 +106,7 @@ __device__ __forceinline__ void load_stage(double* As, double* Bs, const double*
     const int t = term_of(kg, Kp);
     const double* src =
         ok ? R + pick(roff, t) + (long long)(kg - t * Kp) * NNp + m0 + col : R;
-    cp_async16(As + r * LDA + col, src, ok);
+    dmma::cp_async16(As + r * LDA + col, src, ok);
   }
   for (int c = threadIdx.x; c < BN * BK / 2; c += kGemmThreads) {
     const int n = c / (BK / 2), kq = (c % (BK / 2)) * 2;
@@ -135,7 +115,7 @@ __device__ __forceinline__ void load_stage(double* As, double* Bs, const double*
     const int t = term_of(kg, Kp);
     const double* src =
         ok ? L + pick(loff, t) + (long long)(a0 + n) * Kp + (kg - t * Kp) : L;
-    cp_async16(Bs + n * LDB + kq, src, ok);
+    dmma::cp_async16(Bs + n * LDB + kq, src, ok);
   }
 }
 
@@ -162,51 +142,11 @@ numerator_kernel(const double* __restrict__ L, const double* __restrict__ R,
   const int wm = (warp % WARPS_M) * WM, wn = (warp / WARPS_M) * WN;
 
   double acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0;
-
-  const int nk = (3 * Kp + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk)
-      load_stage(As + s * A_STAGE, Bs + s * B_STAGE, L, R, loff, roff, s * BK, Kp, Np, NNp, m0,
-                 a0);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int pre = kt + STAGES - 1;
-    if (pre < nk)
-      load_stage(As + (pre % STAGES) * A_STAGE, Bs + (pre % STAGES) * B_STAGE, L, R, loff, roff,
-                 pre * BK, Kp, Np, NNp, m0, a0);
-    cp_async_commit();
-    const double* as = As + (kt % STAGES) * A_STAGE;
-    const double* bs = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int ko = 0; ko < BK; ko += MMA_K) {
-      double af[MT][NA], bf[NT][NB];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int q = 0; q < NA; ++q)  // A[m][k]: row g + 8 (q & 1), col tg + 4 (q >> 1)
-          af[mt][q] = as[(ko + tg + 4 * (q >> 1)) * LDA + wm + mt * 16 + g + 8 * (q & 1)];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < NB; ++q)  // B[k][n]: row tg + 4 q, col g
-          bf[nt][q] = bs[(wn + nt * 8 + g) * LDB + ko + tg + 4 * q];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_f64(acc[mt][nt], af[mt], bf[nt]);
-    }
-  }
-  cp_async_wait<0>();
+  dmma::mainloop<MT, NT, BK, LDA, LDB, STAGES>(
+      acc, As, Bs, A_STAGE, B_STAGE, (3 * Kp + BK - 1) / BK, wm, wn,
+      [&](double* as, double* bs, int k0) {
+        load_stage(as, bs, L, R, loff, roff, k0, Kp, Np, NNp, m0, a0);
+      });
 
   // C[m][n]: row g + 8 (q >> 1), col 2 tg + (q & 1); t3c[p][a = n][bc = m]
   const long long NN = (long long)v * v;
@@ -224,111 +164,98 @@ numerator_kernel(const double* __restrict__ L, const double* __restrict__ R,
 }
 
 // ---- energy pass -------------------------------------------------------
-constexpr int ET = 32;                  // a and c extent of a tile
-constexpr int ER = 8;                   // a rows of threads; ET / ER rows each
-constexpr int RPT = ET / ER;
-constexpr int kEnergyThreads = ET * ER;
-constexpr int kEnergyBlocksPerSM = 4;   // 32 warps an SM hide the loads' latency
-constexpr int EB = 16;                  // b values a block walks
+using triples::kER;
+using triples::kET;
+using triples::kRPT;
 
-// Grid (tiles, tiles, C nb), tiles = ceil(v / ET), nb = ceil(v / EB);
-// blockIdx.x the c tile, blockIdx.y the a tile, blockIdx.z = p nb + the
-// b range.  Short b ranges give a triple many blocks, so the blocks in
-// flight share few triples and their three reads of an element meet in
-// L2.  x = t3c (C, v, v, v) of the chunk; eo[p] = e_i + e_j + e_k.  One
-// partial a block, at ((p nb + range) tiles + at) tiles + ct.
-// What does not change with b sits in shared memory (t1 and e at the
-// tile's a, the W planes at (a, c)), so a thread keeps few registers.
-__global__ void __launch_bounds__(kEnergyThreads, kEnergyBlocksPerSM)
+// P(t3d) at (a, b, c) for the energy walk, t3d's three permutations
+// rebuilt from t1 and the triple's three W planes: what does not change
+// with b sits in shared memory (t1 at the tile's a, the W planes at
+// (a, c)), so a thread keeps few registers.
+struct RebuiltT3d {
+  const double* Wjk;
+  const double* Wik;
+  const double* Wij;
+  const double* t1i;
+  const double* t1j;
+  const double* t1k;
+  const double (*va)[kET];              // t1[i], t1[j], t1[k] at a
+  const double (*Wac)[kET][kET + 1];    // W_jk, W_ik, W_ij at [a - a0][c - c0]
+  int v, c, tx;
+  bool cok;
+  double t1ic, t1jc, t1kc;
+  double t1ib, t1jb, t1kb, wjk_bc, wik_bc, wij_bc;
+  long long bv;
+
+  __device__ __forceinline__ void begin(int b) {
+    t1ib = t1i[b];
+    t1jb = t1j[b];
+    t1kb = t1k[b];
+    bv = (long long)b * v;
+    wjk_bc = cok ? Wjk[bv + c] : 0.0;
+    wik_bc = cok ? Wik[bv + c] : 0.0;
+    wij_bc = cok ? Wij[bv + c] : 0.0;
+  }
+  __device__ __forceinline__ double p(const double (&)[1], int row, int a, int) const {
+    const double y_abc = va[0][row] * wjk_bc - va[1][row] * wik_bc + va[2][row] * wij_bc;
+    const double y_bac = t1ib * Wac[0][row][tx] - t1jb * Wac[1][row][tx] +
+                         t1kb * Wac[2][row][tx];
+    const double y_cba = t1ic * Wjk[bv + a] - t1jc * Wik[bv + a] + t1kc * Wij[bv + a];
+    return y_abc - y_bac - y_cba;
+  }
+};
+
+// triples_common.cuh's walk over t3c with t3d rebuilt.  Grid (tiles,
+// tiles, C nb); x = t3c (C, v, v, v) of the chunk; eo[p] = e_i + e_j + e_k.
+__global__ void __launch_bounds__(triples::kEnergyThreads, triples::kEnergyBlocksPerSM)
 energy_kernel(const double* __restrict__ x, const double* __restrict__ W,
               const double* __restrict__ t1, const int* __restrict__ ii,
               const int* __restrict__ jj, const int* __restrict__ kk,
               const double* __restrict__ eo, const double* __restrict__ ev, int o, int v,
               double* __restrict__ partials) {
-  __shared__ double S[2][ET][ET + 1];   // x[c', b, a'] at [c' - c0][a' - a0], two b's
-  __shared__ double Wac[3][ET][ET + 1]; // W_jk, W_ik, W_ij at [a - a0][c - c0]
-  __shared__ double va[4][ET];          // t1[i], t1[j], t1[k], e_v at a
-  __shared__ double red[kEnergyThreads];
-  const int nb = (v + EB - 1) / EB;
+  __shared__ double Wac[3][kET][kET + 1];
+  __shared__ double va[3][kET];
+  const int nb = triples::energy_b_ranges(v);
   const int p = blockIdx.z / nb;
-  const int b0 = (blockIdx.z - p * nb) * EB, b1 = min(b0 + EB, v);
+  const int b0 = (blockIdx.z - p * nb) * triples::kEB, b1 = min(b0 + triples::kEB, v);
   const int i = ii[p], j = jj[p], k = kk[p];
   const long long v2 = (long long)v * v;
-  const double* xp = x + (long long)p * v2 * v;
-  const double* Wjk = W + (long long)(j * o + k) * v2;
-  const double* Wik = W + (long long)(i * o + k) * v2;
-  const double* Wij = W + (long long)(i * o + j) * v2;
-  const double* t1i = t1 + (long long)i * v;
-  const double* t1j = t1 + (long long)j * v;
-  const double* t1k = t1 + (long long)k * v;
-  const int tx = threadIdx.x % ET, ty = threadIdx.x / ET;
-  const int a0 = blockIdx.y * ET, c0 = blockIdx.x * ET;
+  const int tx = threadIdx.x % kET, ty = threadIdx.x / kET;
+  const int a0 = blockIdx.y * kET, c0 = blockIdx.x * kET;
   const int c = c0 + tx;
   const bool cok = c < v;
-  const double ep = eo[p];
-  const double t1ic = cok ? t1i[c] : 0.0, t1jc = cok ? t1j[c] : 0.0,
-               t1kc = cok ? t1k[c] : 0.0, evc = cok ? ev[c] : 0.0;
-
-  if (ty < 4) {
+  RebuiltT3d y;
+  y.Wjk = W + (long long)(j * o + k) * v2;
+  y.Wik = W + (long long)(i * o + k) * v2;
+  y.Wij = W + (long long)(i * o + j) * v2;
+  y.t1i = t1 + (long long)i * v;
+  y.t1j = t1 + (long long)j * v;
+  y.t1k = t1 + (long long)k * v;
+  y.va = va;
+  y.Wac = Wac;
+  y.v = v;
+  y.c = c;
+  y.tx = tx;
+  y.cok = cok;
+  y.t1ic = cok ? y.t1i[c] : 0.0;
+  y.t1jc = cok ? y.t1j[c] : 0.0;
+  y.t1kc = cok ? y.t1k[c] : 0.0;
+  if (ty < 3) {
     const int a = a0 + tx;
-    const double* src = ty == 0 ? t1i : ty == 1 ? t1j : ty == 2 ? t1k : ev;
+    const double* src = ty == 0 ? y.t1i : ty == 1 ? y.t1j : y.t1k;
     va[ty][tx] = a < v ? src[a] : 0.0;
   }
-  double nxt[RPT];  // x[c', b, a'] of the next b, read ahead of its use
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = ty + ER * r, a = a0 + row, cr = c0 + row, ar = a0 + tx;
+  for (int r = 0; r < kRPT; ++r) {
+    const int row = ty + kER * r, a = a0 + row;
     const bool in = a < v && cok;
-    Wac[0][row][tx] = in ? Wjk[a * v + c] : 0.0;
-    Wac[1][row][tx] = in ? Wik[a * v + c] : 0.0;
-    Wac[2][row][tx] = in ? Wij[a * v + c] : 0.0;
-    nxt[r] = (cr < v && ar < v) ? xp[((long long)cr * v + b0) * v + ar] : 0.0;
+    Wac[0][row][tx] = in ? y.Wjk[a * v + c] : 0.0;
+    Wac[1][row][tx] = in ? y.Wik[a * v + c] : 0.0;
+    Wac[2][row][tx] = in ? y.Wij[a * v + c] : 0.0;
   }
-
-  double acc = 0.0;
-  for (int b = b0; b < b1; ++b) {
-    double (*Sb)[ET + 1] = S[b & 1];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) Sb[ty + ER * r][tx] = nxt[r];
-    // one barrier a step: S[b & 1] was last read two steps ago
-    __syncthreads();
-    if (b + 1 < b1) {
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int cr = c0 + ty + ER * r, ar = a0 + tx;
-        nxt[r] = (cr < v && ar < v) ? xp[((long long)cr * v + b + 1) * v + ar] : 0.0;
-      }
-    }
-    const double t1ib = t1i[b], t1jb = t1j[b], t1kb = t1k[b];
-    const double evb = ev[b];
-    const long long bv = (long long)b * v;
-    const double wjk_bc = cok ? Wjk[bv + c] : 0.0, wik_bc = cok ? Wik[bv + c] : 0.0,
-                 wij_bc = cok ? Wij[bv + c] : 0.0;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = ty + ER * r, a = a0 + row;
-      if (!cok || a >= v) continue;
-      const double x_abc = xp[((long long)a * v + b) * v + c];
-      const double x_bac = xp[(bv + a) * v + c];
-      const double x_cba = Sb[tx][row];
-      const double y_abc = va[0][row] * wjk_bc - va[1][row] * wik_bc + va[2][row] * wij_bc;
-      const double y_bac = t1ib * Wac[0][row][tx] - t1jb * Wac[1][row][tx] +
-                           t1kb * Wac[2][row][tx];
-      const double y_cba = t1ic * Wjk[bv + a] - t1jc * Wik[bv + a] + t1kc * Wij[bv + a];
-      const double px = x_abc - x_bac - x_cba;
-      const double py = y_abc - y_bac - y_cba;
-      const double d = ep - va[3][row] - evb - evc;
-      acc += px * (px + py) / d;
-    }
-  }
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kEnergyThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0)
-    partials[((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = red[0];
+  const double* const panels[1] = {x + (long long)p * v2 * v};
+  const double acc = triples::energy_walk<1>(panels, y, ev, eo[p], v, a0, c0, b0, b1);
+  triples::energy_block_partial(acc, partials);
 }
 
 }  // namespace
@@ -354,9 +281,9 @@ extern "C" int triples_fused_energy_launch(const void* t3c, const void* W, const
                                            const void* ii, const void* jj, const void* kk,
                                            const void* eo, const void* ev, int C, int o,
                                            int v, void* partials, void* stream) {
-  const unsigned tiles = (unsigned)((v + ET - 1) / ET);
-  dim3 grid(tiles, tiles, (unsigned)(C * ((v + EB - 1) / EB)));
-  energy_kernel<<<grid, kEnergyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned tiles = (unsigned)((v + kET - 1) / kET);
+  dim3 grid(tiles, tiles, (unsigned)(C * ((v + triples::kEB - 1) / triples::kEB)));
+  energy_kernel<<<grid, triples::kEnergyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(t3c), static_cast<const double*>(W),
       static_cast<const double*>(t1), static_cast<const int*>(ii), static_cast<const int*>(jj),
       static_cast<const int*>(kk), static_cast<const double*>(eo),

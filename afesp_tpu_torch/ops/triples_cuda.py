@@ -26,7 +26,6 @@ from ._build import load
 
 F64 = torch.float64
 _VP = ctypes.c_void_p
-_REDUCE_BLOCKS = 132 * 8  # finale partials per reduction: 8 blocks per SM
 # scratch budget of one K1 chunk: its t3c panels (C, v, v, v) f64
 FUSED_SCRATCH_BYTES = 2e9
 
@@ -88,15 +87,16 @@ def triples_finale(t3c, t3d, eo_sum, e_v) -> torch.Tensor:
         raise ValueError(f"triples_finale: panels {tuple(t3c.shape)}, {tuple(t3d.shape)}")
     if eo_sum.shape != (P,) or e_v.shape != (v,):
         raise ValueError("triples_finale: eo_sum must be (P,) and e_v (v,)")
+    if P == 0:
+        return t3c.new_zeros(())
     lib = load("triples_finale")
     fn = lib.triples_finale_launch
-    fn.argtypes = [_VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int, _VP,
-                   ctypes.c_int, _VP, _VP]
+    fn.argtypes = [_VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int, _VP, _VP, _VP]
     fn.restype = ctypes.c_int
-    partials = torch.empty(_REDUCE_BLOCKS, dtype=F64, device=dev)
+    partials = torch.empty(P * energy_blocks(v), dtype=F64, device=dev)
     out = torch.empty((), dtype=F64, device=dev)
-    rc = fn(_ptr(t3c), _ptr(t3d), _ptr(eo_sum), _ptr(e_v), P, v, _ptr(partials),
-            _REDUCE_BLOCKS, _ptr(out), _stream(dev))
+    rc = fn(_ptr(t3c), _ptr(t3d), _ptr(eo_sum), _ptr(e_v), P, v, _ptr(partials), _ptr(out),
+            _stream(dev))
     _raise_on("triples_finale", rc)
     triples_finale.launches += 1
     return out
@@ -162,8 +162,8 @@ def fused_term_offsets(ii, jj, kk, o: int, v: int) -> torch.Tensor:
 
 
 def energy_blocks(v: int) -> int:
-    """Blocks of K1's energy pass a triple, one partial each: (a, c)
-    tiles of 32 a side times ranges of 16 b."""
+    """Blocks of the energy walk (K1's energy pass, K2) a panel, one
+    partial each: (a, c) tiles of 32 a side times ranges of 16 b."""
     return (-(-v // 32)) ** 2 * -(-v // 16)
 
 

@@ -5,9 +5,10 @@ K3 `triples_fused_spatial` (csrc/triples_fused_spatial.cu) replaces
 `afesp_tpu/ops/triples_pallas.py:triples_fused_spatial` (body
 `_fused_spatial_kernel`); K4 `triples_tiled_spatial`
 (csrc/triples_tiled_spatial.cu) replaces
-`afesp_tpu/ops/triples_tiled.py:triples_tiled_spatial` (stage 2,
-`_tiled_kernel`; stage 1 `_chunk_cubes` is batched torch matmuls here as
-it is XLA there); K5 `triples_finale_spatial`
+`afesp_tpu/ops/triples_tiled.py:triples_tiled_spatial` (stage 1
+`_chunk_cubes`, XLA einsums there, as a tensor-core GEMM kernel; stage 2
+`_tiled_kernel` as an orbit-tile kernel; `_chunk_cubes` here is its
+plain stage 1); K5 `triples_finale_spatial`
 (csrc/triples_finale_spatial.cu) replaces
 `afesp_tpu/ops/triples_pallas.py:triples_finale_spatial` (body
 `_make_spatial_kernel`).  All compute in f64 with f64 accumulation (the
@@ -37,7 +38,9 @@ on each wrapper counts the calls that launched its kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ._build import load
@@ -78,8 +81,8 @@ _WVV_PAIRS = ((1, 2), (0, 2), (0, 1))
 
 # scratch budget of one K3 chunk: its x and m cubes (C, v, v, v) f64
 FUSED_SCRATCH_BYTES = 2e9
-# budget of one K4 chunk: stage 1's four cubes plus its GEMM transients,
-# ~8 (B, v, v, v) f64 arrays
+# budget of one chunk of K4's plain version: stage 1's four cubes plus its
+# GEMM transients, ~8 (B, v, v, v) f64 arrays
 TILED_SCRATCH_BYTES = 4e9
 _REDUCE_SPAN = 8 * 256  # cube elements per reduction block (8 per thread)
 _MAX_REDUCE_BLOCKS = 64  # per triple or panel
@@ -111,7 +114,7 @@ def spatial_operands(t1, t2, v_vvov, v_oovo, v_oovv, Iv, Jo):
 
 
 def _chunk_cubes(ops: dict, ii, jj, kk, *, has_z: bool, has_y: bool, has_m: bool) -> dict:
-    """Stage 1 of K4 (and the cubes of K3's plain version): per-triple
+    """Stage 1 of K4's and K3's plain versions: per-triple
     (B, v, v, v) f64 cubes of one chunk of sorted triples — "x" = t3_D,
     "m" = m3, "z" = the z3 numerator, "y" — as batched matmuls.  Port of
     afesp_tpu/ops/triples_tiled.py:_chunk_cubes, one orientation only."""
@@ -337,13 +340,139 @@ triples_finale_spatial.launches = 0
 
 # --------------------------------------------------------------- K4 -----
 
+# the block tiles of K4's stage-1 GEMM, csrc/triples_tiled_spatial.cu
+# triples_tiled_spatial_cube_launch: (p, q) rows x group-axis columns
+TILE_CONFIGS = ((256, 64), (256, 80))
+# budget of one K4 chunk in the kernel's path: its x (and m) cubes
+TILED_CUBE_BYTES = 2e9
+_ORBIT_TILE = 8  # edge of stage 2's tiles, csrc/triples_tiled_spatial.cu OT
+
 
 def tiled_chunk_len(total: int, v: int) -> int:
-    """Triples per K4 chunk: stage 1's ~8 live (B, v^3) f64 arrays stay
-    under TILED_SCRATCH_BYTES, and the chunks are of near-equal length."""
+    """Triples per chunk of K4's plain version: stage 1's ~8 live
+    (B, v^3) f64 arrays stay under TILED_SCRATCH_BYTES, and the chunks are
+    of near-equal length."""
     cmax = max(1, min(65535, int(TILED_SCRATCH_BYTES // (8 * 8 * v**3))))
     nchunk = -(-total // cmax)
     return -(-total // nchunk)
+
+
+def tiled_cube_chunk_len(total: int, v: int, has_m: bool) -> int:
+    """Triples per chunk of K4's kernels: the x (and m) cubes stay under
+    TILED_CUBE_BYTES, and the chunks are of near-equal length."""
+    ncube = 2 if has_m else 1
+    cmax = max(1, min(65535, int(TILED_CUBE_BYTES // (ncube * 8 * v**3))))
+    nchunk = -(-total // cmax)
+    return -(-total // nchunk)
+
+
+def tiled_tile_dims(o: int, v: int) -> tuple[int, int, int, int, int]:
+    """(Np, Kv, Ko, NNp, tile) of K4's stage-1 GEMM: the group axis
+    padded to a multiple of 8 (the MMA's N), the t2 terms' K = v and the
+    m terms' K = o each padded to an even count (16-byte copies never
+    straddle two terms), the (p, q) rows v*v padded to a multiple of 8,
+    and the block tile of TILE_CONFIGS whose columns cover Np with the
+    least padding (the narrower on a tie)."""
+    Np = -(-v // 8) * 8
+    tile = min(range(len(TILE_CONFIGS)),
+               key=lambda t: (-(-Np // TILE_CONFIGS[t][1]) * TILE_CONFIGS[t][1], t))
+    return Np, -(-v // 2) * 2, -(-o // 2) * 2, -(-(v * v) // 8) * 8, tile
+
+
+def tiled_layout(o: int, v: int, has_m: bool):
+    """Where tiled_operands puts each table: (lefts, rights, lbase,
+    rbase, lsize, rsize).  lefts: [(name, K)] of the (o, o, Np, K) left
+    tables; rights: [(name, K)] of the (o, K, NNp) right tables, each in
+    both (p, q) orders; the bases are element offsets, keyed by name and
+    by (name, y_first)."""
+    Np, Kv, Ko, NNp, _ = tiled_tile_dims(o, v)
+    lefts = [("t2", Kv), ("VoL", Ko)] + ([("JoT", Ko)] if has_m else [])
+    rights = [("VvF", Kv), ("t2M2", Ko)] + ([("IvF", Kv)] if has_m else [])
+    lbase, off = {}, 0
+    for name, K in lefts:
+        lbase[name], off = off, off + o * o * Np * K
+    lsize = off
+    rbase, off = {}, 0
+    for name, K in rights:
+        for y_first in (True, False):
+            rbase[name, y_first], off = off, off + o * K * NNp
+    return lefts, rights, lbase, rbase, lsize, off
+
+
+def tiled_operands(ops: dict, has_m: bool):
+    """The operand tables of K4's stage-1 GEMM, zero-padded to
+    tiled_tile_dims and laid end to end (tiled_layout) in two flat f64
+    buffers:
+      Lbuf: "t2" (o, o, Np, Kv) = t2;  "VoL" (o, o, Np, Ko) = -VoL;
+            "JoT" = -JoT (CR)  — A[x][K] of a term at row x;
+      Rbuf: (name, y_first) (o, K, NNp) for "VvF", "t2M2" and "IvF"
+            (CR): the table with its last two axes flattened in (y, z)
+            order (y_first) or (z, y) order — B[K][p, q] of a term.
+    The m terms' tables are negated so that one accumulator takes the
+    four terms of a group."""
+    t2 = ops["t2"]
+    o, v = t2.shape[0], t2.shape[2]
+    Np, _, _, NNp, _ = tiled_tile_dims(o, v)
+    lefts, rights, lbase, rbase, lsize, rsize = tiled_layout(o, v, has_m)
+    Lbuf = t2.new_zeros(lsize)
+    for name, K in lefts:
+        tab = ops[name]  # (o, o, v, K')
+        view = Lbuf[lbase[name] : lbase[name] + o * o * Np * K].view(o, o, Np, K)
+        view[:, :, :v, : tab.shape[3]] = tab if name == "t2" else -tab
+    Rbuf = t2.new_zeros(rsize)
+    for name, K in rights:
+        tab = ops[name]  # (o, K', v, v)
+        for y_first in (True, False):
+            b = rbase[name, y_first]
+            src = tab if y_first else tab.transpose(2, 3)
+            Rbuf[b : b + o * K * NNp].view(o, K, NNp)[:, : tab.shape[1], : v * v] = \
+                src.reshape(o, tab.shape[1], v * v)
+    return Lbuf, Rbuf
+
+
+@functools.lru_cache(maxsize=16)
+def _term_tables(o: int, v: int, cubes: tuple[str, ...], device: torch.device):
+    """tiled_term_offsets's (base, coef) on `device`: an offset is
+    base + sum over the roles (i, j, k) of the triple's index times coef."""
+    Np, Kv, Ko, NNp, _ = tiled_tile_dims(o, v)
+    _, _, lbase, rbase, _, _ = tiled_layout(o, v, "m" in cubes)
+    base = np.zeros((len(cubes), 3, 8), dtype=np.int64)
+    coef = np.zeros((len(cubes), 3, 8, 3), dtype=np.int64)
+    for q, cube in enumerate(cubes):
+        for g, terms in enumerate(fused_term_groups(o, v, cube)):
+            assert [d["A"] == "t2" for d in terms] == [True, True, False, False]
+            for t, d in enumerate(terms):
+                lk = Kv if d["A"] == "t2" else Ko
+                rk = Ko if d["B"] == "t2M2" else Kv
+                # L: (idx[pa] o + idx[pb]) Np lk;  R: idx[r] rk NNp
+                base[q, g, 2 * t] = lbase[d["A"]]
+                coef[q, g, 2 * t, d["pa"]] += o * Np * lk
+                coef[q, g, 2 * t, d["pb"]] += Np * lk
+                base[q, g, 2 * t + 1] = rbase[d["B"], d["y_first"]]
+                coef[q, g, 2 * t + 1, d["r"]] += rk * NNp
+    return torch.as_tensor(base, device=device), torch.as_tensor(coef, device=device)
+
+
+def tiled_term_offsets(ii, jj, kk, o: int, v: int, cubes: tuple[str, ...]) -> torch.Tensor:
+    """(len(cubes), C, 3, 8) int64: for each cube, triple and group of
+    fused_term_groups, the element offsets into Lbuf and Rbuf of
+    tiled_operands (with CR iff "m" is among the cubes) of its four
+    terms, (L0, R0, L1, R1, L2, R2, L3, R3): two t2 terms (K = Kv), then
+    two m terms (K = Ko)."""
+    base, coef = _term_tables(o, v, tuple(cubes), ii.device)
+    idx = torch.stack([x.long() for x in (ii, jj, kk)], 1)  # (C, 3)
+    desc = base + (idx[:, None, None, None, :] * coef).sum(-1)
+    return desc.permute(1, 0, 2, 3).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def orbit_tiles(v: int, device=None) -> torch.Tensor:
+    """(nT, 3) int32: the sorted triples A <= B <= C of stage 2's 8-wide
+    tiles, one block each; every tile of a cube lies in the orbit of
+    exactly one."""
+    nt = -(-v // _ORBIT_TILE)
+    return torch.combinations(torch.arange(nt, dtype=torch.int32), 3,
+                              with_replacement=True).contiguous().to(device)
 
 
 def triples_tiled_spatial_plain(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo,
@@ -358,12 +487,16 @@ def triples_tiled_spatial_plain(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo
 
 
 def triples_tiled_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, jj, kk, w,
-                          *, doing_T: bool, doing_R: bool, doing_CR: bool) -> torch.Tensor:
+                          *, doing_T: bool, doing_R: bool, doing_CR: bool,
+                          split=None) -> torch.Tensor:
     """K4.  t1 (o,v), t2/v_oovv (o,o,v,v), v_vvov (v,v,o,v), v_oovo
     (o,o,v,o), e_o (o,), e_v (v,), Iv = I_vovv'' (v,o,v,v) and Jo =
     I_ooov'' (o,o,o,v) (read only for CR; may be None otherwise), the
     sorted triples ii/jj/kk (C,) with their orbit weights w (C,).
-    Returns the six weighted sums s0..s5."""
+    Returns the six weighted sums s0..s5.  With a list `split` (CUDA
+    only), CUDA events time the call's parts and the list gets
+    [stage-1 ms, operand-build ms, stage-2 ms], each summed over the
+    chunks."""
     flags = dict(doing_T=doing_T, doing_R=doing_R, doing_CR=doing_CR)
     args = (t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, jj, kk, w)
     dev = t1.device
@@ -378,30 +511,61 @@ def triples_tiled_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, 
         return t1.new_zeros(6)
     o, v = t1.shape
     lib = load("triples_tiled_spatial")
-    chunk = lib.triples_tiled_spatial_chunk_launch
-    chunk.argtypes = [_VP] * 6 + [ctypes.c_int] * 3 + [_VP] * 2
-    chunk.restype = ctypes.c_int
+    cube_fn = lib.triples_tiled_spatial_cube_launch
+    cube_fn.argtypes = [_VP] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                                         _VP, _VP]
+    cube_fn.restype = ctypes.c_int
+    orbit_fn = lib.triples_tiled_spatial_orbit_launch
+    orbit_fn.argtypes = [_VP] * 11 + [ctypes.c_int] * 6 + [_VP] * 2
+    orbit_fn.restype = ctypes.c_int
 
+    timed = split is not None
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if timed else []
+    if timed:
+        marks[0].record()
     ops = spatial_operands(t1, t2, v_vvov, v_oovo, v_oovv,
                            Iv if has_m else None, Jo if has_m else None)
-    ii64, jj64, kk64 = idx.long()
-    eo_sum = (e_o[ii64] + e_o[jj64] + e_o[kk64]).contiguous()
-    clen = tiled_chunk_len(n, v)
-    nb = _reduce_blocks(v)
-    partials = torch.empty(n * nb * 6, dtype=F64, device=dev)
+    Np, Kv, Ko, NNp, tile = tiled_tile_dims(o, v)
+    Lbuf, Rbuf = tiled_operands(ops, has_m)
+    cubes = ("x", "m") if has_m else ("x",)
+    ii32, jj32, kk32 = (x.contiguous() for x in idx)
+    desc = tiled_term_offsets(ii32, jj32, kk32, o, v, cubes)
+    tiles = orbit_tiles(v, dev)
+    nT = tiles.shape[0]
+    eo_sum = (e_o[ii32.long()] + e_o[jj32.long()] + e_o[kk32.long()]).contiguous()
+    clen = tiled_cube_chunk_len(n, v, has_m)
+    scratch = torch.empty((len(cubes), clen, v, v, v), dtype=F64, device=dev)
+    partials = torch.empty(n * nT * 6, dtype=F64, device=dev)
+    if timed:
+        marks[1].record()
     stream = _stream(dev)
+    spans = []
     for c0 in range(0, n, clen):
-        sl = slice(c0, c0 + clen)
-        B = min(clen, n - c0)
-        cubes = _chunk_cubes(ops, ii64[sl], jj64[sl], kk64[sl],
-                             has_z=has_z, has_y=has_y, has_m=has_m)
-        rc = chunk(_ptr(cubes["x"]),
-                   *(_ptr(cubes[k]) if k in cubes else None for k in ("m", "z", "y")),
-                   _ptr(eo_sum[c0:]), _ptr(e_v), B, v, nb,
-                   _ptr(partials[c0 * nb * 6:]), stream)
+        C = min(clen, n - c0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if timed else []
+        if timed:
+            ev[0].record()
+        for q in range(len(cubes)):
+            rc = cube_fn(_ptr(Lbuf), _ptr(Rbuf), _ptr(desc[q, c0:]), C, v, Kv, Ko, Np, NNp, tile,
+                         _ptr(scratch[q]), stream)
+            _raise_on("triples_tiled_spatial", rc)
+        if timed:
+            ev[1].record()
+        rc = orbit_fn(_ptr(scratch[0]), _ptr(scratch[1]) if has_m else None, _ptr(ops["t1"]),
+                      _ptr(ops["t2"]), _ptr(ops["W"]), _ptr(e_v), _ptr(eo_sum[c0:]),
+                      _ptr(ii32[c0:]), _ptr(jj32[c0:]), _ptr(kk32[c0:]), _ptr(tiles), nT, C,
+                      o, v, int(has_z), int(has_y), _ptr(partials[c0 * nT * 6:]), stream)
         _raise_on("triples_tiled_spatial", rc)
-    out, rc = _weighted_sum(lib, partials, w, nb, dev)
+        if timed:
+            ev[2].record()
+            spans.append(ev)
+    out, rc = _weighted_sum(lib, partials, w, nT, dev)
     _raise_on("triples_tiled_spatial", rc)
+    if timed:
+        torch.cuda.synchronize(dev)
+        split.extend([sum(e[0].elapsed_time(e[1]) for e in spans),
+                      marks[0].elapsed_time(marks[1]),
+                      sum(e[1].elapsed_time(e[2]) for e in spans)])
     triples_tiled_spatial.launches += 1
     return out
 
@@ -435,8 +599,10 @@ def fused_term_groups(o: int, v: int, cube: str) -> list[list[dict]]:
         cube[a,b,c] += sign * sum_K A[x][K] * B[K][y, z]
     with A[x][K] at  A + (idx[pa] o + idx[pb]) a_pair + x a_x + K a_k  and
     B[K][p, q] at    B + idx[r] b_r + K b_k + p b_p + q b_q,
-    (p, q) being the two cube axes other than the group's, ascending.
-    "A"/"B" name operands of `spatial_operands`."""
+    (p, q) being the two cube axes other than the group's, ascending;
+    "y_first" says whether (p, q) is the B table's (y, z) order (K4
+    reads the table flattened in that order).  "A"/"B" name operands of
+    `spatial_operands`.  Within a group the two t2 terms come first."""
     v2, v3 = v * v, v**3
     f_lhs = dict(A="t2", a_pair=v2, a_x=v, a_k=1, K=v, sign=1.0)
     f_rhs = dict(B="VvF" if cube == "x" else "IvF", b_r=v3, b_k=v2, b_y=v, b_z=1)
@@ -459,7 +625,7 @@ def fused_term_groups(o: int, v: int, cube: str) -> list[list[dict]]:
                 K=lhs["K"], sign=lhs["sign"],
                 B=rhs["B"], b_r=rhs["b_r"], b_k=rhs["b_k"],
                 b_p=b_y if y_first else b_z, b_q=b_z if y_first else b_y,
-                pa=pa, pb=pb, r=r,
+                y_first=y_first, pa=pa, pb=pb, r=r,
             ))
     return groups
 

@@ -21,10 +21,12 @@ each with its wall time:
      (both sides f64, only the order of summation differs; a sum nearer
      0 than 1e-6 of the largest is held to that floor instead), and two
      launches agree bit for bit; kernel, plain and library times by CUDA
-     events at the paths' shapes, and K1's split between its numerator
-     and energy-pass launches; then K1 alone at the spin-orbital dimer's
-     shape (o=20, v=212, 1140 strict triples), held and timed the same
-     way (kernel over 2 launches, plain over 1);
+     events at every shape (above the paths' shapes the kernel over 2
+     launches, the plain version and the library over 1), K1's split
+     between its numerator and energy-pass launches and K4's between its
+     stage-1 kernels, its operand build and stage 2; then K1 alone at the
+     spin-orbital dimer's shape (o=20, v=212, 1140 strict triples), held
+     and timed the same way;
   4. the spin-orbital path, `run_calculation` on a staged copy of
      data/h2o-cc-pvtz-2.00_104.45 with the committed eri.dat, default
      "fused" triples tier (K1): HF, MP2, CCSD and CCSD(T) totals within
@@ -44,8 +46,8 @@ each with its wall time:
      CPU and on the card, and the CC iterations each file takes to
      restart a run on the card (the restarted energies are held to
      1e-8 of the writers');
-  9. one JSON line of the kernels: launches on the path that runs each,
-     times, bound and errors.
+  9. one JSON line of the kernels, a row for each kernel at each shape
+     timed: launches on the path that runs it, times, bound and errors.
 
 Every check raises on failure (nonzero exit, no `ok` line).  The last
 line is {"ok": true, "device": {...}}.  The script writes nothing into
@@ -161,7 +163,8 @@ def k1_dimer_check(torch, dev, o: int = 20, v: int = 212) -> dict:
     occupied, 212 virtual spin orbitals, 1140 strict triples) on seeded
     random inputs: held against its plain version to KERNEL_RTOL, two
     launches bit-identical, kernel ms over 2 launches after a warm-up,
-    the plain version's ms over one launch, its bound and its split."""
+    the plain version's and the all-torch f64 tier's ms over one launch
+    each, its bound and its split."""
     from afesp_tpu_torch.methods import triples_spinorb as T
     from afesp_tpu_torch.ops import triples_cuda as K
 
@@ -178,12 +181,16 @@ def k1_dimer_check(torch, dev, o: int = 20, v: int = 212) -> dict:
     rel = abs(g - w) / max(abs(w), 1e-300)
     check(rel <= KERNEL_RTOL, f"triples_fused (o={o}, v={v}): kernel {g!r} vs plain {w!r} "
                               f"(rel {rel:.3e})")
-    b_ms, b_by = k1_bound(o, v, n, args)
+    pi, pj, pk, clen = (torch.as_tensor(x, dtype=torch.long, device=dev)
+                        if not isinstance(x, int) else x for x in T.strict_plan(o, v))
+    library = lambda: 6.0 * T._triples_total_strict(*args, pi, pj, pk, clen=clen,
+                                                    precision="f64")
     return dict(shape=f"o={o}, v={v}, {n} strict triples", max_abs_err=abs(g - w),
                 max_rel_err=rel, ms=cuda_ms(torch, lambda: K.triples_fused(*args, *idx), 2),
                 plain_ms=cuda_ms(torch, lambda: K.triples_fused_plain(*args, *idx), 1,
                                  warm=False),
-                bound_ms=b_ms, bound_by=b_by, split_ms=k1_split(K, args, idx, 1))
+                library_ms=cuda_ms(torch, library, 1, warm=False),
+                bound=k1_bound(o, v, n, args), split_ms=k1_split(K, args, idx, 1))
 
 
 def kernel_checks(torch, dev, o: int, v: int) -> dict:
@@ -212,7 +219,7 @@ def kernel_checks(torch, dev, o: int, v: int) -> dict:
         plain_ms=cuda_ms(torch, lambda: K.triples_fused_plain(*args, ii, jj, kk)),
         library_ms=cuda_ms(torch, library),
         split_ms=k1_split(K, args, (ii, jj, kk)),
-        bound=k1_bound(o, v, n, args),
+        bound=k1_bound(o, v, n, args), shape=f"o={o}, v={v}, {n} strict triples",
         source="afesp_tpu_torch/csrc/triples_fused.cu",
         replaces="afesp_tpu/ops/triples_pallas.py:926 (triples_fused, body _fused_kernel :308)",
     )
@@ -236,6 +243,7 @@ def kernel_checks(torch, dev, o: int, v: int) -> dict:
         # function over all panels, so the library call is that same call
         library_ms=plain_ms,
         bound=bound_ms(clen * v**3 * 11, 2 * clen * v**3 * 8 + (clen + v + 1) * 8),
+        shape=f"({clen}, v, v, v) panels x2, v={v}",
         source="afesp_tpu_torch/csrc/triples_finale.cu",
         replaces="afesp_tpu/ops/triples_pallas.py:1042 (triples_finale, body _finale_kernel :46)",
     )
@@ -277,10 +285,13 @@ def six_sum_error(got, want) -> tuple[float, float]:
     return abs_err, rel_err
 
 
-def spatial_kernel_checks(torch, dev, o: int, v: int, timed: bool) -> dict:
+def spatial_kernel_checks(torch, dev, o: int, v: int) -> dict:
     """K3, K4 and K5 against their plain versions at (o, v), all variants
-    on, and the kernels' times; with `timed`, also the plain and library
-    times and the bounds (the spatial path's shapes)."""
+    on (K3 and K5 up to nvirt 128, as their tiers run), with the kernels',
+    the plain versions' and the library's times, the bounds and K4's
+    split.  Up to the spatial path's shape every time is a mean of 5
+    launches; above it the kernels take 2, and the plain versions and
+    the all-torch f64 tier one launch each."""
     from afesp_tpu_torch.methods import triples_spatial as TS
     from afesp_tpu_torch.ops import triples_spatial_cuda as S
 
@@ -290,7 +301,10 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, timed: bool) -> dict:
     flags = dict(doing_T=True, doing_R=True, doing_CR=True)
     rows = {}
 
-    def held(name, fn, plain, reps=5):
+    small = v <= 53
+    reps = 5 if small else 2
+
+    def held(name, fn, plain):
         got, again = fn(), fn()
         want = plain()
         torch.cuda.synchronize()
@@ -299,10 +313,9 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, timed: bool) -> dict:
         check(rel_err <= KERNEL_RTOL,
               f"{name} (o={o}, v={v}): kernel {got.tolist()} vs plain {want.tolist()} "
               f"(rel {rel_err:.3e})")
-        row = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=cuda_ms(torch, fn, reps))
-        if timed:
-            row["plain_ms"] = cuda_ms(torch, plain, reps)
-        return row
+        return dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=cuda_ms(torch, fn, reps),
+                    plain_ms=cuda_ms(torch, plain, 5) if small else
+                    cuda_ms(torch, plain, 1, warm=False))
 
     # bytes of the sorted-triple function: every input read once, six sums out
     in_bytes = sum(x.numel() * 8 for x in args) + n * (3 * 4 + 8) + 6 * 8
@@ -319,10 +332,17 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, timed: bool) -> dict:
         if name == "triples_fused_spatial" and v > 128:
             continue  # K3 is the default up to nvirt 128: checked up to the dimer's
         rows[name] = held(name, lambda fn=fn: fn(*args, si, sj, sk, w, **flags),
-                          lambda plain=plain: plain(*args, si, sj, sk, w, **flags),
-                          reps=5 if v <= 106 else 2)
-        if timed:
-            rows[name].update(library_ms=cuda_ms(torch, f64_total), bound=bound_ms(ops, in_bytes))
+                          lambda plain=plain: plain(*args, si, sj, sk, w, **flags))
+        rows[name].update(library_ms=cuda_ms(torch, f64_total) if small else
+                          cuda_ms(torch, f64_total, 1, warm=False),
+                          bound=bound_ms(ops, in_bytes))
+    # K4's split: stage-1 kernels, the wrapper's operand build, stage 2
+    parts = [0.0, 0.0, 0.0]
+    for _ in range(reps):
+        split = []
+        S.triples_tiled_spatial(*args, si, sj, sk, w, **flags, split=split)
+        parts = [a + b / reps for a, b in zip(parts, split)]
+    rows["triples_tiled_spatial"]["split_ms"] = parts
 
     if v <= 128:  # K5 is checked up to the dimer's shape, as K3
         # the panels of one i-slab, as the "pallas" tier builds them
@@ -334,13 +354,12 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, timed: bool) -> dict:
             lambda: S.triples_finale_spatial_plain(*fa, **fk))
         P = fa[0].shape[0]
         r["shape"] = f"{P} panels of (v, v, v), v={v}"
-        if timed:
-            # the plain version is one torch expression of the same function
-            r["library_ms"] = r["plain_ms"]
-            # ~45 flops an element: D, xbar of x and zn, zn at three points,
-            # y, six products
-            fin_bytes = sum(x.numel() * 8 for x in fa if x is not None) + 6 * 8
-            r["bound"] = bound_ms(P * v**3 * 45, fin_bytes)
+        # the plain version is one torch expression of the same function
+        r["library_ms"] = r["plain_ms"]
+        # ~45 flops an element: D, xbar of x and zn, zn at three points,
+        # y, six products
+        fin_bytes = sum(x.numel() * 8 for x in fa if x is not None) + 6 * 8
+        r["bound"] = bound_ms(P * v**3 * 45, fin_bytes)
     sources = {
         "triples_fused_spatial": (
             "afesp_tpu_torch/csrc/triples_fused_spatial.cu",
@@ -348,8 +367,8 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, timed: bool) -> dict:
             "_fused_spatial_kernel :470)"),
         "triples_tiled_spatial": (
             "afesp_tpu_torch/csrc/triples_tiled_spatial.cu",
-            "afesp_tpu/ops/triples_tiled.py:347 (triples_tiled_spatial, stage 2 "
-            "_tiled_kernel :151 via _pallas_partials :279)"),
+            "afesp_tpu/ops/triples_tiled.py:347 (triples_tiled_spatial: stage 1 "
+            "_chunk_cubes :71, stage 2 _tiled_kernel :151 via _pallas_partials :279)"),
         "triples_finale_spatial": (
             "afesp_tpu_torch/csrc/triples_finale_spatial.cu",
             "afesp_tpu/ops/triples_pallas.py:222 (triples_finale_spatial, body "
@@ -546,26 +565,33 @@ def main() -> int:
         for line in b["log"].strip().splitlines():
             print(f"  nvcc[{name}] {line}", flush=True)
 
+    # every timed row of the kernels line: (name, row), the paths' shapes first
+    table = []
     info = {}
     with phase("kernels", info):
         rows = kernel_checks(torch, dev, o=expected["nocc"], v=expected["nvirt"])
-        rows.update(spatial_kernel_checks(torch, dev, o=spatial["nocc"], v=spatial["nvirt"],
-                                          timed=True))
+        rows.update(spatial_kernel_checks(torch, dev, o=spatial["nocc"], v=spatial["nvirt"]))
         info.update({n: f"rel={r['max_rel_err']:.3e},ms={r['ms']:.4f}" for n, r in rows.items()})
         info["triples_fused_split_ms"] = json.dumps(rows["triples_fused"]["split_ms"])
+        info["triples_tiled_spatial_split_ms"] = json.dumps(
+            rows["triples_tiled_spatial"]["split_ms"])
+        table += list(rows.items())
     # K1 at the spin-orbital dimer's shape, seeded random inputs
     info = {}
     with phase("kernels_o20_v212", info):
         dimer_k1 = k1_dimer_check(torch, dev)
+        for key in ("source", "replaces"):
+            dimer_k1[key] = rows["triples_fused"][key]
         info.update(triples_fused=json.dumps(dimer_k1))
+        table.append(("triples_fused", dimer_k1))
     # the spatial kernels at the dimer's and the trimer's shapes (K3 and K5
-    # up to the dimer's), seeded random inputs: held, and the kernels timed
+    # up to the dimer's), seeded random inputs: held and timed
     for o, v in ((10, 106), (15, 159)):
         info = {}
         with phase(f"kernels_o{o}_v{v}", info):
-            big = spatial_kernel_checks(torch, dev, o=o, v=v, timed=False)
-            info.update({n: f"rel={r['max_rel_err']:.3e},ms={r['ms']:.4f},shape={r['shape']!r}"
-                         for n, r in big.items()})
+            big = spatial_kernel_checks(torch, dev, o=o, v=v)
+            info.update({n: json.dumps(r) for n, r in big.items()})
+            table += list(big.items())
 
     wd = stage_workdir()
     try:
@@ -639,14 +665,14 @@ def main() -> int:
                      "triples_fused_spatial": spatial_launches,
                      **tier_launches}
     out = []
-    for name, r in rows.items():
+    for name, r in table:
         b_ms, b_by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": path_launches[name],
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": r["library_ms"],
+            "bound_by": b_by, "library_ms": r["library_ms"], "shape": r["shape"],
             **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
         })
     print(json.dumps({"kernels": out}), flush=True)

@@ -67,10 +67,18 @@ def test_k1_kernel_matches_plain(o, v):
     assert abs(float(got) - float(want)) <= 1e-11 * abs(float(want))
 
 
-@pytest.mark.parametrize("o,v", SHAPES)
+# K2 also at the spin-orbital dimer's shape and at the ragged ones of K1
+K2_SHAPES = SHAPES + [(20, 212), (5, 37), (4, 37)]
+
+
+@pytest.mark.parametrize("o,v", K2_SHAPES)
 def test_k2_kernel_matches_plain(o, v):
     dev = _card()
-    args, (ii, jj, kk) = _problem(dev, o, v)
+    args, idx = _problem(dev, o, v)
+    # the panels of as many triples as 4 GB of t3c and t3d hold (all of
+    # them up to the H2O/cc-pVTZ shape; 26 at the dimer's)
+    cap = max(1, int(4e9 // (16 * v**3)))
+    ii, jj, kk = (x[:cap] for x in idx)
     t3c, t3d = T._chunk_panels(ii, jj, kk, *args[:5])
     e_o, e_v = args[5], args[6]
     panels = (t3c.contiguous(), t3d.contiguous(), (e_o[ii] + e_o[jj] + e_o[kk]).contiguous(), e_v)
@@ -148,8 +156,13 @@ def _six_close(got, want):
         assert abs(g - w) <= 1e-11 * max(abs(w), floor), (g, w)
 
 
-@pytest.mark.parametrize("kernel", ["triples_fused_spatial", "triples_tiled_spatial"])
-@pytest.mark.parametrize("o,v", SPATIAL_SHAPES)
+# K4 also at the dimer's and the trimer's shapes (the trimer's default tier)
+K3_K4_CASES = [(k, o, v) for o, v in SPATIAL_SHAPES
+               for k in ("triples_fused_spatial", "triples_tiled_spatial")] + [
+    ("triples_tiled_spatial", 10, 106), ("triples_tiled_spatial", 15, 159)]
+
+
+@pytest.mark.parametrize("kernel,o,v", K3_K4_CASES)
 def test_k3_k4_kernels_match_plain(kernel, o, v):
     dev = _card()
     args, plan = _spatial(dev, o, v)

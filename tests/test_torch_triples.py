@@ -273,3 +273,35 @@ def test_k1_energy_pass_indexing(o, v):
     got = float(partials.reshape(-1).sum())
     want = float(K.triples_fused_plain(*args, ii, jj, kk))
     assert abs(got - want) <= 1e-12 * abs(want)
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k2_walk_indexing(o, v):
+    """K2's walk as it indexes, in torch: for each panel, x and y read at
+    abc and bac along c and at cba through the transposed tile, P(x) and
+    P(y) formed beside each other, then one partial for each 32 x 32
+    (a, c) tile and range of 16 b of each panel, in the kernel's
+    panel-major order, summed.  It equals triples_finale_plain."""
+    args, (ii, jj, kk) = _tile_problem(o, v)
+    t3c, t3d = TT._chunk_panels(ii, jj, kk, *args[:5])
+    e_o, e_v = args[5], args[6]
+    eo_sum = e_o[ii] + e_o[jj] + e_o[kk]
+    av = torch.arange(v)
+    a, b, c = av[:, None, None], av[None, :, None], av[None, None, :]
+    tiles, nb = -(-v // 32), -(-v // 16)
+    partials = torch.zeros(len(ii), nb, tiles, tiles, dtype=F64)
+    for p in range(len(ii)):
+        xf, yf = t3c[p].reshape(-1), t3d[p].reshape(-1)
+        px = xf[(a * v + b) * v + c] - xf[(b * v + a) * v + c] - xf[(c * v + b) * v + a]
+        py = yf[(a * v + b) * v + c] - yf[(b * v + a) * v + c] - yf[(c * v + b) * v + a]
+        d = eo_sum[p] - e_v[a] - e_v[b] - e_v[c]
+        term = px * (px + py) / d
+        for br in range(nb):
+            for at in range(tiles):
+                for ct in range(tiles):
+                    partials[p, br, at, ct] = term[at * 32 : at * 32 + 32, br * 16 : br * 16 + 16,
+                                                   ct * 32 : ct * 32 + 32].sum()
+    assert partials.numel() == len(ii) * K.energy_blocks(v)
+    got = float(partials.reshape(-1).sum())
+    want = float(K.triples_finale_plain(t3c, t3d, eo_sum, e_v))
+    assert abs(got - want) <= 1e-12 * abs(want)

@@ -331,3 +331,165 @@ def test_wrappers_refuse_other_devices_and_dtypes():
     with pytest.raises(ValueError, match="outside"):
         K._check_sorted_triples("k", cpu, *args, plan[0] + o, *plan[1:], True)
     assert check(*args).shape == (3, len(plan[0]))
+
+
+# (o, v) of the CPU tests of K4's kernels' indexing: a small shape and
+# two where v is a multiple of no tile (8, 16, 32) and v*v is odd
+TILE_SHAPES = [(6, 10), (5, 37), (4, 37)]
+# the six orders of a tile triple and of an element's permuted reads in
+# K4's stage 2 (csrc/triples_tiled_spatial.cu perm_at): abc, bac, acb, cba, bca, cab
+ORDERS = [(0, 1, 2), (1, 0, 2), (0, 2, 1), (2, 1, 0), (1, 2, 0), (2, 0, 1)]
+
+
+def _tile_problem(o, v):
+    args = _torch(random_spatial_problem(o, v, seed=5))
+    t1, t2, vvov, oovo, oovv, e_o, e_v, Iv, Jo = args
+    ops = K.spatial_operands(t1, t2, vvov, oovo, oovv, Iv, Jo)
+    si, sj, sk, w = _plan(o)
+    return args, ops, tuple(x.long() for x in (si, sj, sk)), w
+
+
+def _rel_close(got, want, rtol=1e-12):
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_chunk_cubes_match_jax(o, v):
+    """Stage 1's plain version, the port's `_chunk_cubes`, against the
+    JAX package's (f32 operands and einsums, as its tiled tier runs
+    them on the CPU): every cube to 1e-5 of its largest element."""
+    from afesp_tpu.ops.triples_tiled import _chunk_cubes as jax_chunk_cubes
+
+    args = random_spatial_problem(o, v, seed=5)
+    t1, t2, vvov, oovo, oovv, e_o, e_v, Iv, Jo = (np.asarray(x, np.float32) for x in args)
+    si, sj, sk, _ = _plan(o)
+    jcubes = jax_chunk_cubes(
+        *(jnp.asarray(x) for x in (t2, vvov.transpose(2, 3, 1, 0), oovo, t2.transpose(1, 0, 3, 2),
+                                   Iv.transpose(1, 0, 2, 3), Jo.transpose(0, 1, 3, 2), oovv, t1)),
+        *(jnp.asarray(x.numpy()) for x in (si, sj, sk)),
+        has_z=True, has_y=True, has_m=True, npa=v)
+    _, ops, idx, _ = _tile_problem(o, v)
+    cubes = K._chunk_cubes(ops, *idx, has_z=True, has_y=True, has_m=True)
+    for name, cube in cubes.items():
+        want = torch.as_tensor(np.asarray(jcubes[name + "g"], np.float64))
+        _rel_close(cube, want, 1e-5)
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k4_stage1_gemm_gives_the_cubes(o, v):
+    """K4's stage-1 GEMM as its tiles address it, in torch: for each
+    cube, triple and group, row kg of the concatenated K axis lies in
+    term (kg >= Kv) + (kg >= 2Kv) + (kg >= 2Kv + Ko) at row kg - start of
+    the blocks that tiled_term_offsets points at; A[pq, kg] comes from
+    Rbuf, B[kg, x] from Lbuf, and the epilogue puts C[pq, x] at the
+    group's place in the cube, group 0 writing and groups 1, 2 adding.
+    The cubes equal `_chunk_cubes`'s x and m to 1e-12 relative."""
+    _, ops, (ii, jj, kk), _ = _tile_problem(o, v)
+    Np, Kv, Ko, NNp, tile = K.tiled_tile_dims(o, v)
+    assert Np % 8 == 0 and Kv % 2 == 0 and Ko % 2 == 0 and NNp % 8 == 0 and NNp >= v * v
+    assert 0 <= tile < len(K.TILE_CONFIGS)
+    Lbuf, Rbuf = K.tiled_operands(ops, True)
+    desc = K.tiled_term_offsets(ii, jj, kk, o, v, ("x", "m"))
+    assert desc.shape == (2, len(ii), 3, 8) and desc.dtype == torch.int64
+    assert not (desc % 2).any()  # every 16-byte copy is aligned
+    want = K._chunk_cubes(ops, ii, jj, kk, has_z=False, has_y=False, has_m=True)
+    kg = torch.arange(2 * Kv + 2 * Ko)
+    term = (kg >= Kv).long() + (kg >= 2 * Kv).long() + (kg >= 2 * Kv + Ko).long()
+    start = torch.where(term < 2, term * Kv, 2 * Kv + (term - 2) * Ko)
+    ld = torch.where(term < 2, Kv, Ko)
+    m, n = torch.arange(NNp), torch.arange(Np)
+    for q, cube in enumerate(("x", "m")):
+        got = torch.empty_like(want[cube])
+        for p in range(len(ii)):
+            for g in range(3):
+                loff, roff = desc[q, p, g, 0::2], desc[q, p, g, 1::2]
+                A = Rbuf[roff[term][None, :] + (kg - start)[None, :] * NNp + m[:, None]]
+                B = Lbuf[loff[term][:, None] + n[None, :] * ld[:, None] + (kg - start)[:, None]]
+                C = (A @ B)[: v * v, :v]  # rows (p, q) of the two other axes, cols the group's
+                if g == 0:
+                    got[p] = C.T.reshape(v, v, v)
+                elif g == 1:
+                    got[p] += C.reshape(v, v, v).permute(0, 2, 1)
+                else:
+                    got[p] += C.reshape(v, v, v)
+        _rel_close(got, want[cube])
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k4_zn_and_y_on_the_fly(o, v):
+    """K4's stage 2 builds zn and y at an element from t1 and the flat
+    (v, v) planes of v_oovv and t2 as it indexes them; they equal
+    `_chunk_cubes`'s z3 numerator and y cubes to 1e-12 relative."""
+    _, ops, (ii, jj, kk), _ = _tile_problem(o, v)
+    want = K._chunk_cubes(ops, ii, jj, kk, has_z=True, has_y=True, has_m=False)
+    t1, W, t2 = ops["t1"], ops["W"].reshape(-1), ops["t2"].reshape(-1)
+    ar = torch.arange(v)
+    a, b, c = ar[:, None, None], ar[None, :, None], ar[None, None, :]
+    v2 = v * v
+    for p, (i, j, k) in enumerate(zip(ii.tolist(), jj.tolist(), kk.tolist())):
+        ti, tj, tk = t1[i][a], t1[j][b], t1[k][c]
+        zn = (ti * W[(j * o + k) * v2 + b * v + c] + tj * W[(i * o + k) * v2 + a * v + c]
+              + tk * W[(i * o + j) * v2 + a * v + b])
+        y = (ti * (tj * tk + t2[(j * o + k) * v2 + b * v + c])
+             + tj * t2[(i * o + k) * v2 + a * v + c] + tk * t2[(i * o + j) * v2 + a * v + b])
+        _rel_close(zn, want["z"][p])
+        _rel_close(y, want["y"][p])
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k4_orbit_tile_addressing(o, v):
+    """K4's stage 2 as it addresses its shared tiles, in torch: a block
+    takes a sorted tile triple (A, B, C) of orbit_tiles, stages each
+    distinct tile of the six orders once (zeros past v), and for every
+    element of each distinct tile reads its five permuted elements from
+    the staged tile the order composition names; one partial row of six
+    sums a block.  Every cube element is staged once, and the weighted
+    sums equal the plain M-operator sums to 1e-12 relative."""
+    _, ops, (ii, jj, kk), w = _tile_problem(o, v)
+    cubes = K._chunk_cubes(ops, ii, jj, kk, has_z=True, has_y=True, has_m=True)
+    e_o, e_v = _tile_problem(o, v)[0][5:7]
+    eo = e_o[ii] + e_o[jj] + e_o[kk]
+    want = (w[:, None] * K._m_sums_plain(cubes, eo, e_v)).sum(dim=0)
+    tiles = K.orbit_tiles(v)
+    nt = -(-v // 8)
+    assert tiles.dtype == torch.int32 and len(tiles) == nt * (nt + 1) * (nt + 2) // 6
+    pad = nt * 8 - v
+    padded = {k: torch.nn.functional.pad(u, (0, pad, 0, pad, 0, pad)) for k, u in cubes.items()}
+    evp = torch.nn.functional.pad(e_v, (0, pad))
+    loc = torch.meshgrid(*(torch.arange(8),) * 3, indexing="ij")
+    compose = [[ORDERS.index(tuple(ORDERS[s][ORDERS[r][n]] for n in range(3)))
+                for r in range(6)] for s in range(6)]
+    total = torch.zeros(6, dtype=F64)
+    staged = torch.zeros(nt * 8, nt * 8, nt * 8, dtype=torch.long)
+    for p in range(len(ii)):
+        acc = torch.zeros(6, dtype=F64)
+        for T in tiles.tolist():
+            tup = [tuple(T[P[n]] for n in range(3)) for P in ORDERS]
+            smap = [tup.index(t) for t in tup]
+            sl = lambda s: tuple(slice(8 * t, 8 * t + 8) for t in tup[s])
+            for s in range(6):
+                if smap[s] != s:
+                    continue
+                if p == 0:
+                    staged[sl(s)] += 1
+                g = [(a * 8 + l) for a, l in zip(tup[s], loc)]
+                mask = (g[0] < v) & (g[1] < v) & (g[2] < v)
+
+                def reads(cube):
+                    out = []
+                    for r in range(6):
+                        t = padded[cube][p][sl(smap[compose[s][r]])]
+                        out.append(t[loc[ORDERS[r][0]], loc[ORDERS[r][1]], loc[ORDERS[r][2]]])
+                    return out
+
+                u, z = reads("x"), reads("z")
+                mx = 8.0 * u[0] - 4.0 * (u[1] + u[2] + u[3]) + 2.0 * (u[4] + u[5])
+                mz = 8.0 * z[0] - 4.0 * (z[1] + z[2] + z[3]) + 2.0 * (z[4] + z[5])
+                d = eo[p] - evp[g[0]] - evp[g[1]] - evp[g[2]]
+                yv, mv = padded["y"][p][sl(s)], padded["m"][p][sl(s)]
+                terms = [u[0] * mx, u[0] * mz, yv * mx, yv * mz, mv * mx, mv * mz]
+                acc += torch.stack([(x / d)[mask].sum() for x in terms])
+        total += w[p] * acc
+    assert int(staged.min()) == int(staged.max()) == 1
+    scale = float(want.abs().max())
+    assert float((total - want).abs().max()) <= 1e-12 * scale
