@@ -1,5 +1,5 @@
 // The f64 tensor-core GEMM tile shared by K1's numerator
-// (triples_fused.cu) and K4's stage 1 (triples_tiled_spatial.cu):
+// (triples_fused.cu) and K3's and K4's numerator (spatial_gemm.cuh):
 // warp-level mma.sync m16n8k4 (DMMA; Hopper's wgmma has no f64 type, and
 // m8n8k4 runs at half the rate of m16n8k4 on the H100, PERF.md §6), fed
 // from a ring of shared-memory stages filled by 16-byte cp.async.

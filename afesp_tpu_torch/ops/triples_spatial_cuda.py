@@ -8,13 +8,15 @@ K3 `triples_fused_spatial` (csrc/triples_fused_spatial.cu) replaces
 `afesp_tpu/ops/triples_tiled.py:triples_tiled_spatial` (stage 1
 `_chunk_cubes`, XLA einsums there, as a tensor-core GEMM kernel; stage 2
 `_tiled_kernel` as an orbit-tile kernel; `_chunk_cubes` here is its
-plain stage 1); K5 `triples_finale_spatial`
+plain stage 1).  On the card K3 and K4 run the same kernels
+(csrc/sorted_triples.cuh, `_sorted_triples_cuda`), each from its own
+library and with its own counter.  K5 `triples_finale_spatial`
 (csrc/triples_finale_spatial.cu) replaces
 `afesp_tpu/ops/triples_pallas.py:triples_finale_spatial` (body
 `_make_spatial_kernel`).  All compute in f64 with f64 accumulation (the
 TPU kernels are f32 only because Mosaic has no f64).  Each CUDA source's
-head note gives the kernel's bound on the H100 and what its simple
-design leaves on the table.
+head note gives the kernel's bound on the H100 and what its design
+leaves on the table.
 
 K3 and K4 return the six sorted-triple sums, weighted by the orbits
 (1, 1/2, 1/6) of `methods/triples_spatial.strict_spatial_plan`:
@@ -79,17 +81,11 @@ _SPATIAL_M3M_TERMS = (  # lhs JoT[p,q] (c,m) @ rhs t2M2[x] (m, b*a), sign -1
 # the v_oovv (and t2) pair blocks of the z3 and y numerators: [j,k], [i,k], [i,j]
 _WVV_PAIRS = ((1, 2), (0, 2), (0, 1))
 
-# scratch budget of one K3 chunk: its x and m cubes (C, v, v, v) f64
+# scratch budget of one chunk of K3's plain version: its x and m cubes
 FUSED_SCRATCH_BYTES = 2e9
 # budget of one chunk of K4's plain version: stage 1's four cubes plus its
 # GEMM transients, ~8 (B, v, v, v) f64 arrays
 TILED_SCRATCH_BYTES = 4e9
-_REDUCE_SPAN = 8 * 256  # cube elements per reduction block (8 per thread)
-_MAX_REDUCE_BLOCKS = 64  # per triple or panel
-
-
-def _reduce_blocks(v: int) -> int:
-    return max(1, min(_MAX_REDUCE_BLOCKS, -(-(v**3) // _REDUCE_SPAN)))
 
 
 # ----------------------------------------------------- shared pieces -----
@@ -240,8 +236,11 @@ def _check_sorted_triples(name, dev, t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I
         if t.device != dev or t.dtype not in (torch.int32, torch.int64) or t.shape != (n,):
             raise ValueError(f"{name}: {key} must be a ({n},) integer tensor on {dev}")
     idx = torch.stack([x.to(torch.int32) for x in (ii, jj, kk)])
-    if n and (int(idx.min()) < 0 or int(idx.max()) >= o):
-        raise ValueError(f"{name}: triple indices outside [0, {o})")
+    if n:
+        # both ends in one read-back: on a card each read-back synchronises
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+        if lo < 0 or hi >= o:
+            raise ValueError(f"{name}: triple indices outside [0, {o})")
     return idx
 
 
@@ -322,14 +321,15 @@ def triples_finale_spatial(t3_D, m3, mats, vecs, eo_sum, t1_i, e_v, *,
         return t3_D.new_zeros(6)
     lib = load("triples_finale_spatial")
     fn = lib.triples_finale_spatial_launch
-    fn.argtypes = [_VP] * 7 + [ctypes.c_int] * 6 + [_VP] * 3
+    fn.argtypes = [_VP] * 8 + [ctypes.c_int] * 6 + [_VP] * 3
     fn.restype = ctypes.c_int
-    nb = _reduce_blocks(v)
-    partials = torch.empty(P * nb * 6, dtype=F64, device=dev)
+    tiles = orbit_tiles(v, dev)
+    nT = tiles.shape[0]
+    partials = torch.empty(P * nT * 6, dtype=F64, device=dev)
     out = torch.empty(6, dtype=F64, device=dev)
     rc = fn(_ptr(t3_D), _ptr(m3) if doing_CR else None, _ptr(mats), _ptr(vecs),
-            _ptr(eo_sum), _ptr(t1_i), _ptr(e_v), P, v, int(doing_T), int(doing_Y),
-            int(doing_CR), nb, _ptr(partials), _ptr(out), _stream(dev))
+            _ptr(eo_sum), _ptr(t1_i), _ptr(e_v), _ptr(tiles), nT, P, v, int(doing_T),
+            int(doing_Y), int(doing_CR), _ptr(partials), _ptr(out), _stream(dev))
     _raise_on("triples_finale_spatial", rc)
     triples_finale_spatial.launches += 1
     return out
@@ -340,12 +340,15 @@ triples_finale_spatial.launches = 0
 
 # --------------------------------------------------------------- K4 -----
 
-# the block tiles of K4's stage-1 GEMM, csrc/triples_tiled_spatial.cu
-# triples_tiled_spatial_cube_launch: (p, q) rows x group-axis columns
+# the block tiles of the numerator GEMM, csrc/spatial_gemm.cuh
+# launch_group_tile: (p, q) rows x group-axis columns
 TILE_CONFIGS = ((256, 64), (256, 80))
-# budget of one K4 chunk in the kernel's path: its x (and m) cubes
-TILED_CUBE_BYTES = 2e9
-_ORBIT_TILE = 8  # edge of stage 2's tiles, csrc/triples_tiled_spatial.cu OT
+# budget of one chunk of K3's and K4's kernels: the three GEMM groups' x
+# (and m) cubes.  Chunks small enough for their cubes to stay in the
+# H100's 50 MB L2 were slower (PERF.md §6), so a chunk is as large as
+# this allows.
+CUBE_BYTES = 6e9
+_ORBIT_TILE = 8  # edge of the reductions' tiles, csrc/orbit_tile.cuh OT
 
 
 def tiled_chunk_len(total: int, v: int) -> int:
@@ -357,17 +360,19 @@ def tiled_chunk_len(total: int, v: int) -> int:
     return -(-total // nchunk)
 
 
-def tiled_cube_chunk_len(total: int, v: int, has_m: bool) -> int:
-    """Triples per chunk of K4's kernels: the x (and m) cubes stay under
-    TILED_CUBE_BYTES, and the chunks are of near-equal length."""
+def cube_chunk_len(total: int, v: int, has_m: bool) -> int:
+    """Triples per chunk of K3's and K4's kernels: the three groups' x
+    (and m) cubes stay under CUBE_BYTES, the GEMM's grid holds the
+    chunk's (cube, triple) pairs on z, and the chunks are of near-equal
+    length."""
     ncube = 2 if has_m else 1
-    cmax = max(1, min(65535, int(TILED_CUBE_BYTES // (ncube * 8 * v**3))))
+    cmax = max(1, min(65535 // ncube, int(CUBE_BYTES // (3 * ncube * 8 * v**3))))
     nchunk = -(-total // cmax)
     return -(-total // nchunk)
 
 
 def tiled_tile_dims(o: int, v: int) -> tuple[int, int, int, int, int]:
-    """(Np, Kv, Ko, NNp, tile) of K4's stage-1 GEMM: the group axis
+    """(Np, Kv, Ko, NNp, tile) of the numerator GEMM: the group axis
     padded to a multiple of 8 (the MMA's N), the t2 terms' K = v and the
     m terms' K = o each padded to an even count (16-byte copies never
     straddle two terms), the (p, q) rows v*v padded to a multiple of 8,
@@ -380,11 +385,11 @@ def tiled_tile_dims(o: int, v: int) -> tuple[int, int, int, int, int]:
 
 
 def tiled_layout(o: int, v: int, has_m: bool):
-    """Where tiled_operands puts each table: (lefts, rights, lbase,
-    rbase, lsize, rsize).  lefts: [(name, K)] of the (o, o, Np, K) left
-    tables; rights: [(name, K)] of the (o, K, NNp) right tables, each in
-    both (p, q) orders; the bases are element offsets, keyed by name and
-    by (name, y_first)."""
+    """Where the operand tables lie in their two flat buffers: (lefts,
+    rights, lbase, rbase, lsize, rsize).  lefts: [(name, K)] of the
+    (o, o, Np, K) left tables; rights: [(name, K)] of the (o, K, NNp)
+    right tables, each in both (p, q) orders; the bases are element
+    offsets, keyed by name and by (name, y_first)."""
     Np, Kv, Ko, NNp, _ = tiled_tile_dims(o, v)
     lefts = [("t2", Kv), ("VoL", Ko)] + ([("JoT", Ko)] if has_m else [])
     rights = [("VvF", Kv), ("t2M2", Ko)] + ([("IvF", Kv)] if has_m else [])
@@ -399,10 +404,22 @@ def tiled_layout(o: int, v: int, has_m: bool):
     return lefts, rights, lbase, rbase, lsize, off
 
 
+def layout_bases(o: int, v: int, has_m: bool) -> list[int]:
+    """The nine element offsets that the layout kernel takes
+    (csrc/spatial_gemm.cuh Layout): the left tables t2, VoL, JoT in
+    Lbuf, then the right tables VvF, t2M2, IvF in Rbuf, each in the
+    (y, z) order and its transpose; 0 for a table absent without CR."""
+    lefts, rights, lbase, rbase, _, _ = tiled_layout(o, v, has_m)
+    lb = [lbase[name] for name, _ in lefts]
+    rb = [rbase[name, y_first] for name, _ in rights for y_first in (True, False)]
+    return lb + [0] * (3 - len(lb)) + rb + [0] * (6 - len(rb))
+
+
 def tiled_operands(ops: dict, has_m: bool):
-    """The operand tables of K4's stage-1 GEMM, zero-padded to
-    tiled_tile_dims and laid end to end (tiled_layout) in two flat f64
-    buffers:
+    """What the layout kernel (csrc/spatial_gemm.cuh layout_kernel) lays
+    out, in torch, for the CPU tests: the operand tables of the
+    numerator GEMM, zero-padded to tiled_tile_dims and laid end to end
+    (tiled_layout) in two flat f64 buffers:
       Lbuf: "t2" (o, o, Np, Kv) = t2;  "VoL" (o, o, Np, Ko) = -VoL;
             "JoT" = -JoT (CR)  — A[x][K] of a term at row x;
       Rbuf: (name, y_first) (o, K, NNp) for "VvF", "t2M2" and "IvF"
@@ -432,8 +449,9 @@ def tiled_operands(ops: dict, has_m: bool):
 
 @functools.lru_cache(maxsize=16)
 def _term_tables(o: int, v: int, cubes: tuple[str, ...], device: torch.device):
-    """tiled_term_offsets's (base, coef) on `device`: an offset is
-    base + sum over the roles (i, j, k) of the triple's index times coef."""
+    """The per-shape (base, coef) tables of the term offsets on `device`:
+    an offset is base + sum over the roles (i, j, k) of the triple's
+    index times coef."""
     Np, Kv, Ko, NNp, _ = tiled_tile_dims(o, v)
     _, _, lbase, rbase, _, _ = tiled_layout(o, v, "m" in cubes)
     base = np.zeros((len(cubes), 3, 8), dtype=np.int64)
@@ -454,9 +472,10 @@ def _term_tables(o: int, v: int, cubes: tuple[str, ...], device: torch.device):
 
 
 def tiled_term_offsets(ii, jj, kk, o: int, v: int, cubes: tuple[str, ...]) -> torch.Tensor:
-    """(len(cubes), C, 3, 8) int64: for each cube, triple and group of
-    fused_term_groups, the element offsets into Lbuf and Rbuf of
-    tiled_operands (with CR iff "m" is among the cubes) of its four
+    """The term offsets that the layout kernel writes, in torch, for the
+    CPU tests: (len(cubes), C, 3, 8) int64, for each cube, triple and
+    group of fused_term_groups, the element offsets into Lbuf and Rbuf
+    of tiled_operands (with CR iff "m" is among the cubes) of its four
     terms, (L0, R0, L1, R1, L2, R2, L3, R3): two t2 terms (K = Kv), then
     two m terms (K = Ko)."""
     base, coef = _term_tables(o, v, tuple(cubes), ii.device)
@@ -467,12 +486,106 @@ def tiled_term_offsets(ii, jj, kk, o: int, v: int, cubes: tuple[str, ...]) -> to
 
 @functools.lru_cache(maxsize=16)
 def orbit_tiles(v: int, device=None) -> torch.Tensor:
-    """(nT, 3) int32: the sorted triples A <= B <= C of stage 2's 8-wide
-    tiles, one block each; every tile of a cube lies in the orbit of
-    exactly one."""
+    """(nT, 3) int32: the sorted triples A <= B <= C of the reductions'
+    8-wide tiles, one block each; every tile of a cube lies in the orbit
+    of exactly one."""
     nt = -(-v // _ORBIT_TILE)
     return torch.combinations(torch.arange(nt, dtype=torch.int32), 3,
                               with_replacement=True).contiguous().to(device)
+
+
+def _sorted_triples_cuda(wrapper, args, *, doing_T, doing_R, doing_CR, split) -> torch.Tensor:
+    """K3's and K4's path on the card (csrc/sorted_triples.cuh, built
+    into the library named after `wrapper`): one layout launch a call,
+    then a chunk at a time (cube_chunk_len) three group GEMMs, each
+    writing its own x and m cubes, and one orbit-tile reduction over
+    their sums, then the weighted sum; `wrapper.launches` counts the
+    calls that launch.  With a list `split`, CUDA events time the call's
+    parts and the list gets [group-0 ms, group-1 ms, group-2 ms,
+    reduction ms, operand ms]: the group GEMMs and the reduction summed
+    over the chunks, the operand part from the wrapper's first device
+    work through the layout launch."""
+    name = wrapper.__name__
+    t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, jj, kk, w = args
+    dev = t1.device
+    has_z, has_y, has_m = doing_T, doing_R or doing_CR, doing_CR
+    idx = _check_sorted_triples(name, dev, *args, has_m)
+    n = ii.shape[0]
+    if n == 0:
+        return t1.new_zeros(6)
+    o, v = t1.shape
+    lib = load(name)
+    layout_fn = lib.spatial_layout_launch
+    layout_fn.argtypes = ([_VP] * 11 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+                          + [ctypes.c_int] * 7 + [ctypes.c_longlong] + [_VP] * 4)
+    layout_fn.restype = ctypes.c_int
+    group_fn = lib.spatial_group_launch
+    group_fn.argtypes = ([_VP] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                         + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                         + [_VP] * 2)
+    group_fn.restype = ctypes.c_int
+    orbit_fn = lib.spatial_orbit_launch
+    orbit_fn.argtypes = ([_VP] * 2 + [ctypes.c_longlong] + [_VP] * 9 + [ctypes.c_int] * 6
+                         + [_VP] * 2)
+    orbit_fn.restype = ctypes.c_int
+
+    timed = split is not None
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if timed else []
+    if timed:
+        marks[0].record()
+    cubes = ("x", "m") if has_m else ("x",)
+    ncube = len(cubes)
+    Np, Kv, Ko, NNp, tile = tiled_tile_dims(o, v)
+    lefts, rights, _, _, lsize, rsize = tiled_layout(o, v, has_m)
+    bases = (ctypes.c_longlong * 9)(*layout_bases(o, v, has_m))
+    dbase, dcoef = _term_tables(o, v, cubes, dev)
+    ii32, jj32, kk32 = (x.contiguous() for x in idx)
+    Lbuf = torch.empty(lsize, dtype=F64, device=dev)
+    Rbuf = torch.empty(rsize, dtype=F64, device=dev)
+    desc = torch.empty((ncube, n, 3, 8), dtype=torch.int64, device=dev)
+    stream = _stream(dev)
+    rc = layout_fn(_ptr(t2), _ptr(v_vvov), _ptr(v_oovo), _ptr(Iv) if has_m else None,
+                   _ptr(Jo) if has_m else None, _ptr(dbase), _ptr(dcoef), _ptr(ii32),
+                   _ptr(jj32), _ptr(kk32), ctypes.cast(bases, _VP), len(lefts), len(rights),
+                   lsize, rsize, ncube, n, o, v, Np, Kv, Ko, NNp, _ptr(Lbuf), _ptr(Rbuf),
+                   _ptr(desc), stream)
+    _raise_on(name, rc)
+    tiles = orbit_tiles(v, dev)
+    nT = tiles.shape[0]
+    clen = cube_chunk_len(n, v, has_m)
+    # (group, cube, triple): each group's GEMM writes cubes of its own
+    scratch = torch.empty((3, ncube, clen, v, v, v), dtype=F64, device=dev)
+    partials = torch.empty(n * nT * 6, dtype=F64, device=dev)
+    if timed:
+        marks[1].record()
+    spans = []
+    for c0 in range(0, n, clen):
+        C = min(clen, n - c0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)] if timed else []
+        if timed:
+            ev[0].record()
+        for group in range(3):
+            rc = group_fn(_ptr(Lbuf), _ptr(Rbuf), _ptr(desc[0, c0:]), n * 24, ncube, C, v, Kv,
+                          Ko, Np, NNp, tile, group, clen * v**3, _ptr(scratch[group]), stream)
+            _raise_on(name, rc)
+            if timed:
+                ev[group + 1].record()
+        rc = orbit_fn(_ptr(scratch[0, 0]), _ptr(scratch[0, 1]) if has_m else None,
+                      ncube * clen * v**3, _ptr(t1), _ptr(t2), _ptr(v_oovv), _ptr(e_v), _ptr(e_o),
+                      _ptr(ii32[c0:]), _ptr(jj32[c0:]), _ptr(kk32[c0:]), _ptr(tiles), nT, C, o,
+                      v, int(has_z), int(has_y), _ptr(partials[c0 * nT * 6:]), stream)
+        _raise_on(name, rc)
+        if timed:
+            ev[4].record()
+            spans.append(ev)
+    out, rc = _weighted_sum(lib, partials, w, nT, dev)
+    _raise_on(name, rc)
+    if timed:
+        torch.cuda.synchronize(dev)
+        split.extend([sum(e[q].elapsed_time(e[q + 1]) for e in spans) for q in range(4)]
+                     + [marks[0].elapsed_time(marks[1])])
+    wrapper.launches += 1
+    return out
 
 
 def triples_tiled_spatial_plain(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo,
@@ -493,10 +606,9 @@ def triples_tiled_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, 
     (o,o,v,o), e_o (o,), e_v (v,), Iv = I_vovv'' (v,o,v,v) and Jo =
     I_ooov'' (o,o,o,v) (read only for CR; may be None otherwise), the
     sorted triples ii/jj/kk (C,) with their orbit weights w (C,).
-    Returns the six weighted sums s0..s5.  With a list `split` (CUDA
-    only), CUDA events time the call's parts and the list gets
-    [stage-1 ms, operand-build ms, stage-2 ms], each summed over the
-    chunks."""
+    Returns the six weighted sums s0..s5.  On the card it runs the
+    kernels of K3 (`_sorted_triples_cuda`), from its own library;
+    `split` (CUDA only) is that function's."""
     flags = dict(doing_T=doing_T, doing_R=doing_R, doing_CR=doing_CR)
     args = (t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, jj, kk, w)
     dev = t1.device
@@ -504,70 +616,7 @@ def triples_tiled_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, 
         return triples_tiled_spatial_plain(*args, **flags)
     if dev.type != "cuda":
         raise ValueError(f"triples_tiled_spatial: unsupported device {dev}")
-    has_z, has_y, has_m = doing_T, doing_R or doing_CR, doing_CR
-    idx = _check_sorted_triples("triples_tiled_spatial", dev, *args, has_m)
-    n = ii.shape[0]
-    if n == 0:
-        return t1.new_zeros(6)
-    o, v = t1.shape
-    lib = load("triples_tiled_spatial")
-    cube_fn = lib.triples_tiled_spatial_cube_launch
-    cube_fn.argtypes = [_VP] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                                         _VP, _VP]
-    cube_fn.restype = ctypes.c_int
-    orbit_fn = lib.triples_tiled_spatial_orbit_launch
-    orbit_fn.argtypes = [_VP] * 11 + [ctypes.c_int] * 6 + [_VP] * 2
-    orbit_fn.restype = ctypes.c_int
-
-    timed = split is not None
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if timed else []
-    if timed:
-        marks[0].record()
-    ops = spatial_operands(t1, t2, v_vvov, v_oovo, v_oovv,
-                           Iv if has_m else None, Jo if has_m else None)
-    Np, Kv, Ko, NNp, tile = tiled_tile_dims(o, v)
-    Lbuf, Rbuf = tiled_operands(ops, has_m)
-    cubes = ("x", "m") if has_m else ("x",)
-    ii32, jj32, kk32 = (x.contiguous() for x in idx)
-    desc = tiled_term_offsets(ii32, jj32, kk32, o, v, cubes)
-    tiles = orbit_tiles(v, dev)
-    nT = tiles.shape[0]
-    eo_sum = (e_o[ii32.long()] + e_o[jj32.long()] + e_o[kk32.long()]).contiguous()
-    clen = tiled_cube_chunk_len(n, v, has_m)
-    scratch = torch.empty((len(cubes), clen, v, v, v), dtype=F64, device=dev)
-    partials = torch.empty(n * nT * 6, dtype=F64, device=dev)
-    if timed:
-        marks[1].record()
-    stream = _stream(dev)
-    spans = []
-    for c0 in range(0, n, clen):
-        C = min(clen, n - c0)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if timed else []
-        if timed:
-            ev[0].record()
-        for q in range(len(cubes)):
-            rc = cube_fn(_ptr(Lbuf), _ptr(Rbuf), _ptr(desc[q, c0:]), C, v, Kv, Ko, Np, NNp, tile,
-                         _ptr(scratch[q]), stream)
-            _raise_on("triples_tiled_spatial", rc)
-        if timed:
-            ev[1].record()
-        rc = orbit_fn(_ptr(scratch[0]), _ptr(scratch[1]) if has_m else None, _ptr(ops["t1"]),
-                      _ptr(ops["t2"]), _ptr(ops["W"]), _ptr(e_v), _ptr(eo_sum[c0:]),
-                      _ptr(ii32[c0:]), _ptr(jj32[c0:]), _ptr(kk32[c0:]), _ptr(tiles), nT, C,
-                      o, v, int(has_z), int(has_y), _ptr(partials[c0 * nT * 6:]), stream)
-        _raise_on("triples_tiled_spatial", rc)
-        if timed:
-            ev[2].record()
-            spans.append(ev)
-    out, rc = _weighted_sum(lib, partials, w, nT, dev)
-    _raise_on("triples_tiled_spatial", rc)
-    if timed:
-        torch.cuda.synchronize(dev)
-        split.extend([sum(e[0].elapsed_time(e[1]) for e in spans),
-                      marks[0].elapsed_time(marks[1]),
-                      sum(e[1].elapsed_time(e[2]) for e in spans)])
-    triples_tiled_spatial.launches += 1
-    return out
+    return _sorted_triples_cuda(triples_tiled_spatial, args, **flags, split=split)
 
 
 triples_tiled_spatial.launches = 0
@@ -576,33 +625,19 @@ triples_tiled_spatial.launches = 0
 # --------------------------------------------------------------- K3 -----
 
 
-class _Term(ctypes.Structure):
-    _fields_ = [
-        ("A", _VP), ("B", _VP),
-        ("a_pair", ctypes.c_longlong), ("a_x", ctypes.c_longlong), ("a_k", ctypes.c_longlong),
-        ("b_r", ctypes.c_longlong), ("b_k", ctypes.c_longlong),
-        ("b_p", ctypes.c_longlong), ("b_q", ctypes.c_longlong),
-        ("sign", ctypes.c_double),
-        ("K", ctypes.c_int), ("pa", ctypes.c_int), ("pb", ctypes.c_int), ("r", ctypes.c_int),
-    ]
-
-
-class _Group(ctypes.Structure):
-    _fields_ = [("t", _Term * 4), ("nterms", ctypes.c_int), ("axis", ctypes.c_int)]
-
-
 def fused_term_groups(o: int, v: int, cube: str) -> list[list[dict]]:
-    """K3's GEMM descriptors for one numerator cube ("x" = t3_D, "m" =
-    m3), derived from the term tables: three groups (the cube axis a, b
-    or c that a term's single index lands on), four terms each.  A term
-    is
+    """The numerator GEMM's term descriptors for one numerator cube
+    ("x" = t3_D, "m" = m3), derived from the term tables: three groups
+    (the cube axis a, b or c that a term's single index lands on), four
+    terms each.  A term is
         cube[a,b,c] += sign * sum_K A[x][K] * B[K][y, z]
     with A[x][K] at  A + (idx[pa] o + idx[pb]) a_pair + x a_x + K a_k  and
     B[K][p, q] at    B + idx[r] b_r + K b_k + p b_p + q b_q,
     (p, q) being the two cube axes other than the group's, ascending;
-    "y_first" says whether (p, q) is the B table's (y, z) order (K4
-    reads the table flattened in that order).  "A"/"B" name operands of
-    `spatial_operands`.  Within a group the two t2 terms come first."""
+    "y_first" says whether (p, q) is the B table's (y, z) order (the
+    GEMM reads the table flattened in that order).  "A"/"B" name
+    operands of `spatial_operands`.  Within a group the two t2 terms
+    come first."""
     v2, v3 = v * v, v**3
     f_lhs = dict(A="t2", a_pair=v2, a_x=v, a_k=1, K=v, sign=1.0)
     f_rhs = dict(B="VvF" if cube == "x" else "IvF", b_r=v3, b_k=v2, b_y=v, b_z=1)
@@ -630,23 +665,9 @@ def fused_term_groups(o: int, v: int, cube: str) -> list[list[dict]]:
     return groups
 
 
-def _ctypes_groups(groups: list[list[dict]], ops: dict):
-    arr = (_Group * 3)()
-    for g, terms in enumerate(groups):
-        arr[g].nterms = len(terms)
-        arr[g].axis = g
-        for q, d in enumerate(terms):
-            t = arr[g].t[q]
-            t.A, t.B = ops[d["A"]].data_ptr(), ops[d["B"]].data_ptr()
-            for key in ("a_pair", "a_x", "a_k", "b_r", "b_k", "b_p", "b_q", "sign",
-                        "K", "pa", "pb", "r"):
-                setattr(t, key, d[key])
-    return arr
-
-
 def fused_spatial_chunk_len(total: int, v: int, has_m: bool) -> int:
-    """Triples per K3 chunk: the x (and m) cubes stay under
-    FUSED_SCRATCH_BYTES, and the chunks are of near-equal length."""
+    """Triples per chunk of K3's plain version: the x (and m) cubes stay
+    under FUSED_SCRATCH_BYTES, and the chunks are of near-equal length."""
     ncube = 2 if has_m else 1
     cmax = max(1, min(65535, int(FUSED_SCRATCH_BYTES // (ncube * 8 * v**3))))
     nchunk = -(-total // cmax)
@@ -666,9 +687,13 @@ def triples_fused_spatial_plain(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo
 
 
 def triples_fused_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, jj, kk, w,
-                          *, doing_T: bool, doing_R: bool, doing_CR: bool) -> torch.Tensor:
+                          *, doing_T: bool, doing_R: bool, doing_CR: bool,
+                          split=None) -> torch.Tensor:
     """K3.  The arguments of `triples_tiled_spatial`; returns the same six
-    weighted sums s0..s5, with the numerator GEMMs in the kernel."""
+    weighted sums s0..s5.  On the card it runs `_sorted_triples_cuda`
+    (one layout launch, three group GEMMs and one orbit-tile reduction a
+    chunk, the weighted sum) from its own library; `split` (CUDA only)
+    is that function's."""
     flags = dict(doing_T=doing_T, doing_R=doing_R, doing_CR=doing_CR)
     args = (t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, jj, kk, w)
     dev = t1.device
@@ -676,49 +701,7 @@ def triples_fused_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, 
         return triples_fused_spatial_plain(*args, **flags)
     if dev.type != "cuda":
         raise ValueError(f"triples_fused_spatial: unsupported device {dev}")
-    has_z, has_y, has_m = doing_T, doing_R or doing_CR, doing_CR
-    idx = _check_sorted_triples("triples_fused_spatial", dev, *args, has_m)
-    n = ii.shape[0]
-    if n == 0:
-        return t1.new_zeros(6)
-    o, v = t1.shape
-    lib = load("triples_fused_spatial")
-    cube_fn = lib.triples_fused_spatial_cube_launch
-    cube_fn.argtypes = [_VP] * 4 + [ctypes.c_int] * 3 + [_VP] * 2
-    cube_fn.restype = ctypes.c_int
-    reduce_fn = lib.triples_fused_spatial_reduce_launch
-    reduce_fn.argtypes = [_VP] * 10 + [ctypes.c_int] * 6 + [_VP] * 3
-    reduce_fn.restype = ctypes.c_int
-
-    ops = spatial_operands(t1, t2, v_vvov, v_oovo, v_oovv,
-                           Iv if has_m else None, Jo if has_m else None)
-    groups = {c: _ctypes_groups(fused_term_groups(o, v, c), ops)
-              for c in (("x", "m") if has_m else ("x",))}
-    ii32, jj32, kk32 = (x.contiguous() for x in idx)
-    eo_sum = (e_o[ii32.long()] + e_o[jj32.long()] + e_o[kk32.long()]).contiguous()
-    clen = fused_spatial_chunk_len(n, v, has_m)
-    nb = _reduce_blocks(v)
-    cubes = {c: torch.empty((clen, v, v, v), dtype=F64, device=dev) for c in groups}
-    ujk = torch.empty((clen, v, v), dtype=F64, device=dev)
-    partials = torch.empty(n * nb * 6, dtype=F64, device=dev)
-    stream = _stream(dev)
-    for c0 in range(0, n, clen):
-        C = min(clen, n - c0)
-        tri = (_ptr(ii32[c0:]), _ptr(jj32[c0:]), _ptr(kk32[c0:]))
-        for c, arr in groups.items():
-            rc = cube_fn(ctypes.addressof(arr), *tri, C, o, v, _ptr(cubes[c]), stream)
-            _raise_on("triples_fused_spatial", rc)
-        rc = reduce_fn(
-            _ptr(cubes["x"]), _ptr(cubes["m"]) if has_m else None, _ptr(ops["t1"]),
-            _ptr(ops["t2"]), _ptr(ops["W"]), _ptr(e_v), _ptr(eo_sum[c0:]), *tri,
-            C, o, v, int(has_z), int(has_y), nb, _ptr(ujk),
-            _ptr(partials[c0 * nb * 6:]), stream,
-        )
-        _raise_on("triples_fused_spatial", rc)
-    out, rc = _weighted_sum(lib, partials, w, nb, dev)
-    _raise_on("triples_fused_spatial", rc)
-    triples_fused_spatial.launches += 1
-    return out
+    return _sorted_triples_cuda(triples_fused_spatial, args, **flags, split=split)
 
 
 triples_fused_spatial.launches = 0

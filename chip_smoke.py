@@ -23,8 +23,9 @@ each with its wall time:
      launches agree bit for bit; kernel, plain and library times by CUDA
      events at every shape (above the paths' shapes the kernel over 2
      launches, the plain version and the library over 1), K1's split
-     between its numerator and energy-pass launches and K4's between its
-     stage-1 kernels, its operand build and stage 2; then K1 alone at the
+     between its numerator and energy-pass launches, K3's and K4's
+     between their numerator GEMMs (and each of the three groups), their
+     reduction and their operand and host work; then K1 alone at the
      spin-orbital dimer's shape (o=20, v=212, 1140 strict triples), held
      and timed the same way;
   4. the spin-orbital path, `run_calculation` on a staged copy of
@@ -47,7 +48,8 @@ each with its wall time:
      restart a run on the card (the restarted energies are held to
      1e-8 of the writers');
   9. one JSON line of the kernels, a row for each kernel at each shape
-     timed: launches on the path that runs it, times, bound and errors.
+     timed: launches on the path that runs it, times, bound, the bound's
+     share of the time and errors, and the splits of K1, K3 and K4.
 
 Every check raises on failure (nonzero exit, no `ok` line).  The last
 line is {"ok": true, "device": {...}}.  The script writes nothing into
@@ -74,6 +76,8 @@ SPATIAL_EXPECTED = FIXTURE / "expected_jax_cpu_crccsd_t_spatial.json"
 # peak (the f64 work of every kernel could at best run there)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F64_PER_S = 67e12
+# a device-side wait (~25 ms) while the host queues the timed calls
+QUEUE_CYCLES = 50_000_000
 KERNEL_RTOL = 1e-11
 KERNEL_FLOOR = 1e-6  # of the largest of a kernel's six sums
 ENERGY_TOL = 1e-8
@@ -95,12 +99,15 @@ def check(cond: bool, what: str) -> None:
 
 def cuda_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
     """Mean device time of fn() over `reps` calls, after one warm-up
-    unless the caller has just run it (`warm=False`)."""
+    unless the caller has just run it (`warm=False`).  The calls queue
+    behind a device-side wait of QUEUE_CYCLES, so a wrapper that does not
+    synchronise is timed at the device's pace, not the host's."""
     if warm:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -288,8 +295,8 @@ def six_sum_error(got, want) -> tuple[float, float]:
 def spatial_kernel_checks(torch, dev, o: int, v: int) -> dict:
     """K3, K4 and K5 against their plain versions at (o, v), all variants
     on (K3 and K5 up to nvirt 128, as their tiers run), with the kernels',
-    the plain versions' and the library's times, the bounds and K4's
-    split.  Up to the spatial path's shape every time is a mean of 5
+    the plain versions' and the library's times, the bounds and K3's and
+    K4's splits.  Up to the spatial path's shape every time is a mean of 5
     launches; above it the kernels take 2, and the plain versions and
     the all-torch f64 tier one launch each."""
     from afesp_tpu_torch.methods import triples_spatial as TS
@@ -336,13 +343,20 @@ def spatial_kernel_checks(torch, dev, o: int, v: int) -> dict:
         rows[name].update(library_ms=cuda_ms(torch, f64_total) if small else
                           cuda_ms(torch, f64_total, 1, warm=False),
                           bound=bound_ms(ops, in_bytes))
-    # K4's split: stage-1 kernels, the wrapper's operand build, stage 2
-    parts = [0.0, 0.0, 0.0]
-    for _ in range(reps):
-        split = []
-        S.triples_tiled_spatial(*args, si, sj, sk, w, **flags, split=split)
-        parts = [a + b / reps for a, b in zip(parts, split)]
-    rows["triples_tiled_spatial"]["split_ms"] = parts
+    # K3's and K4's split: the three group GEMMs (each in group_ms), the
+    # reduction, the operand and host work
+    for name, fn in (("triples_tiled_spatial", S.triples_tiled_spatial),
+                     ("triples_fused_spatial", S.triples_fused_spatial)):
+        if name not in rows:
+            continue
+        parts = None
+        for _ in range(reps):
+            split = []
+            fn(*args, si, sj, sk, w, **flags, split=split)
+            parts = split if parts is None else [a + b for a, b in zip(parts, split)]
+        parts = [p / reps for p in parts]
+        rows[name]["group_ms"] = parts[:3]
+        rows[name]["split_ms"] = [sum(parts[:3]), parts[3], parts[4]]
 
     if v <= 128:  # K5 is checked up to the dimer's shape, as K3
         # the panels of one i-slab, as the "pallas" tier builds them
@@ -573,8 +587,8 @@ def main() -> int:
         rows.update(spatial_kernel_checks(torch, dev, o=spatial["nocc"], v=spatial["nvirt"]))
         info.update({n: f"rel={r['max_rel_err']:.3e},ms={r['ms']:.4f}" for n, r in rows.items()})
         info["triples_fused_split_ms"] = json.dumps(rows["triples_fused"]["split_ms"])
-        info["triples_tiled_spatial_split_ms"] = json.dumps(
-            rows["triples_tiled_spatial"]["split_ms"])
+        for name in ("triples_tiled_spatial", "triples_fused_spatial"):
+            info[f"{name}_split_ms"] = json.dumps(rows[name]["split_ms"])
         table += list(rows.items())
     # K1 at the spin-orbital dimer's shape, seeded random inputs
     info = {}
@@ -673,7 +687,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"], "shape": r["shape"],
-            **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
+            "bound_share": b_ms / r["ms"],
+            **{k: r[k] for k in ("split_ms", "group_ms") if k in r},
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(f"{smi}", flush=True)

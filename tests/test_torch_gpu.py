@@ -156,10 +156,13 @@ def _six_close(got, want):
         assert abs(g - w) <= 1e-11 * max(abs(w), floor), (g, w)
 
 
-# K4 also at the dimer's and the trimer's shapes (the trimer's default tier)
-K3_K4_CASES = [(k, o, v) for o, v in SPATIAL_SHAPES
+# K4 also at the dimer's and the trimer's shapes (the trimer's default
+# tier), K3 at the dimer's (its default tier there); both at a ragged v
+# that is a multiple of neither 8 nor 16
+K3_K4_CASES = [(k, o, v) for o, v in SPATIAL_SHAPES + [(4, 37)]
                for k in ("triples_fused_spatial", "triples_tiled_spatial")] + [
-    ("triples_tiled_spatial", 10, 106), ("triples_tiled_spatial", 15, 159)]
+    ("triples_tiled_spatial", 10, 106), ("triples_tiled_spatial", 15, 159),
+    ("triples_fused_spatial", 10, 106)]
 
 
 @pytest.mark.parametrize("kernel,o,v", K3_K4_CASES)
@@ -177,7 +180,11 @@ def test_k3_k4_kernels_match_plain(kernel, o, v):
     _six_close(got, want)
 
 
-@pytest.mark.parametrize("o,v", SPATIAL_SHAPES[:2])
+# K5 also at the dimer's shape (100 panels of one i-slab) and a ragged one
+K5_SHAPES = SPATIAL_SHAPES[:2] + [(10, 106), (4, 37)]
+
+
+@pytest.mark.parametrize("o,v", K5_SHAPES)
 def test_k5_kernel_matches_plain(o, v):
     dev = _card()
     args, _ = _spatial(dev, o, v)
@@ -191,6 +198,49 @@ def test_k5_kernel_matches_plain(o, v):
     assert S.triples_finale_spatial.launches == before + 2
     assert torch.equal(got, again)
     _six_close(got, want)
+
+
+FLAG_SUBSETS = {
+    "T": dict(doing_T=True, doing_R=False, doing_CR=False),
+    "TR": dict(doing_T=True, doing_R=True, doing_CR=False),
+    "TRCR": dict(doing_T=True, doing_R=True, doing_CR=True),
+    "R": dict(doing_T=False, doing_R=True, doing_CR=False),
+    "CR": dict(doing_T=False, doing_R=False, doing_CR=True),
+}
+
+
+@pytest.mark.parametrize("flags", list(FLAG_SUBSETS))
+@pytest.mark.parametrize("kernel", ["triples_fused_spatial", "triples_finale_spatial"])
+def test_k3_k5_flag_subsets(kernel, flags):
+    """Each variant subset takes its own branches of the staging and the
+    sums: K3 and K5 at a ragged shape against their plain versions, and
+    a sum whose variant is off exactly 0."""
+    dev = _card()
+    o, v = 4, 37
+    f = FLAG_SUBSETS[flags]
+    args, plan = _spatial(dev, o, v)
+    if kernel == "triples_fused_spatial":
+        fn = lambda: S.triples_fused_spatial(*args, *plan, **f)
+        plain = lambda: S.triples_fused_spatial_plain(*args, *plan, **f)
+    else:
+        panels = TS.finale_panels(o - 1, 0, *args, jlen=o, doing_CR=f["doing_CR"])
+        fk = dict(doing_T=f["doing_T"], doing_Y=f["doing_R"] or f["doing_CR"],
+                  doing_CR=f["doing_CR"])
+        fn = lambda: S.triples_finale_spatial(*panels, **fk)
+        plain = lambda: S.triples_finale_spatial_plain(*panels, **fk)
+    counter = getattr(S, kernel)
+    before = counter.launches
+    got, again, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(got, again)
+    _six_close(got, want)
+    y = f["doing_R"] or f["doing_CR"]
+    on = [True, f["doing_T"], y, y and f["doing_T"], f["doing_CR"],
+          f["doing_CR"] and f["doing_T"]]
+    for q in range(6):
+        if not on[q]:
+            assert float(got[q]) == 0.0
 
 
 def test_spatial_wrappers_check_their_arguments():

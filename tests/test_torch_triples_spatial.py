@@ -377,13 +377,14 @@ def test_chunk_cubes_match_jax(o, v):
 
 @pytest.mark.parametrize("o,v", TILE_SHAPES)
 def test_k4_stage1_gemm_gives_the_cubes(o, v):
-    """K4's stage-1 GEMM as its tiles address it, in torch: for each
-    cube, triple and group, row kg of the concatenated K axis lies in
-    term (kg >= Kv) + (kg >= 2Kv) + (kg >= 2Kv + Ko) at row kg - start of
-    the blocks that tiled_term_offsets points at; A[pq, kg] comes from
-    Rbuf, B[kg, x] from Lbuf, and the epilogue puts C[pq, x] at the
-    group's place in the cube, group 0 writing and groups 1, 2 adding.
-    The cubes equal `_chunk_cubes`'s x and m to 1e-12 relative."""
+    """The numerator GEMM of K3 and K4 as its tiles address it, in
+    torch: for each cube, triple and group, row kg of the concatenated K
+    axis lies in term (kg >= Kv) + (kg >= 2Kv) + (kg >= 2Kv + Ko) at row
+    kg - start of the blocks that tiled_term_offsets points at;
+    A[pq, kg] comes from Rbuf, B[kg, x] from Lbuf, and the epilogue puts
+    C[pq, x] at the group's place in the group's own cube.  The three
+    groups' cubes, summed in group order as the reduction reads them,
+    equal `_chunk_cubes`'s x and m to 1e-12 relative."""
     _, ops, (ii, jj, kk), _ = _tile_problem(o, v)
     Np, Kv, Ko, NNp, tile = K.tiled_tile_dims(o, v)
     assert Np % 8 == 0 and Kv % 2 == 0 and Ko % 2 == 0 and NNp % 8 == 0 and NNp >= v * v
@@ -399,7 +400,7 @@ def test_k4_stage1_gemm_gives_the_cubes(o, v):
     ld = torch.where(term < 2, Kv, Ko)
     m, n = torch.arange(NNp), torch.arange(Np)
     for q, cube in enumerate(("x", "m")):
-        got = torch.empty_like(want[cube])
+        parts = torch.empty((3, *want[cube].shape), dtype=F64)
         for p in range(len(ii)):
             for g in range(3):
                 loff, roff = desc[q, p, g, 0::2], desc[q, p, g, 1::2]
@@ -407,12 +408,29 @@ def test_k4_stage1_gemm_gives_the_cubes(o, v):
                 B = Lbuf[loff[term][:, None] + n[None, :] * ld[:, None] + (kg - start)[:, None]]
                 C = (A @ B)[: v * v, :v]  # rows (p, q) of the two other axes, cols the group's
                 if g == 0:
-                    got[p] = C.T.reshape(v, v, v)
+                    parts[g, p] = C.T.reshape(v, v, v)
                 elif g == 1:
-                    got[p] += C.reshape(v, v, v).permute(0, 2, 1)
+                    parts[g, p] = C.reshape(v, v, v).permute(0, 2, 1)
                 else:
-                    got[p] += C.reshape(v, v, v)
-        _rel_close(got, want[cube])
+                    parts[g, p] = C.reshape(v, v, v)
+        _rel_close((parts[0] + parts[1]) + parts[2], want[cube])
+
+
+@pytest.mark.parametrize("total,v,has_m", [(35, 53, True), (220, 106, True), (220, 106, False),
+                                           (680, 159, True), (3, 400, True)])
+def test_cube_chunk_len(total, v, has_m):
+    """The chunks of K3's and K4's kernels cover every triple in chunks
+    of near-equal length, the three groups' x (and m) cubes of a chunk
+    stay under CUBE_BYTES (or hold one triple), and the GEMM's z grid of
+    (cube, triple) pairs stays within 65535."""
+    clen = K.cube_chunk_len(total, v, has_m)
+    ncube = 2 if has_m else 1
+    nchunk = -(-total // clen)
+    assert 1 <= clen <= total and (nchunk - 1) * clen < total
+    assert total - (nchunk - 1) * clen > clen - nchunk  # the last chunk is not a runt
+    per_triple = 3 * ncube * 8 * v**3
+    assert clen == 1 or clen * per_triple <= K.CUBE_BYTES
+    assert ncube * clen <= 65535
 
 
 @pytest.mark.parametrize("o,v", TILE_SHAPES)
@@ -438,58 +456,161 @@ def test_k4_zn_and_y_on_the_fly(o, v):
 
 @pytest.mark.parametrize("o,v", TILE_SHAPES)
 def test_k4_orbit_tile_addressing(o, v):
-    """K4's stage 2 as it addresses its shared tiles, in torch: a block
-    takes a sorted tile triple (A, B, C) of orbit_tiles, stages each
-    distinct tile of the six orders once (zeros past v), and for every
-    element of each distinct tile reads its five permuted elements from
-    the staged tile the order composition names; one partial row of six
-    sums a block.  Every cube element is staged once, and the weighted
-    sums equal the plain M-operator sums to 1e-12 relative."""
-    _, ops, (ii, jj, kk), w = _tile_problem(o, v)
+    """The stage-2 reduction of K4, which K3 shares
+    (csrc/orbit_tile.cuh sorted_orbit_kernel), as `_orbit_walk`
+    addresses its shared tiles: a block takes a sorted tile triple
+    (A, B, C) of orbit_tiles, stages each distinct tile of the six orders
+    once (zeros past v), and for every element of each distinct tile
+    reads its five permuted elements from the staged tile the order
+    composition names; one partial row of six sums a block.  Every cube
+    element is staged once, and the weighted sums equal the plain
+    M-operator sums to 1e-12 relative."""
+    args, ops, (ii, jj, kk), w = _tile_problem(o, v)
+    e_o, e_v = args[5], args[6]
     cubes = K._chunk_cubes(ops, ii, jj, kk, has_z=True, has_y=True, has_m=True)
-    e_o, e_v = _tile_problem(o, v)[0][5:7]
     eo = e_o[ii] + e_o[jj] + e_o[kk]
     want = (w[:, None] * K._m_sums_plain(cubes, eo, e_v)).sum(dim=0)
     tiles = K.orbit_tiles(v)
     nt = -(-v // 8)
     assert tiles.dtype == torch.int32 and len(tiles) == nt * (nt + 1) * (nt + 2) // 6
-    pad = nt * 8 - v
-    padded = {k: torch.nn.functional.pad(u, (0, pad, 0, pad, 0, pad)) for k, u in cubes.items()}
-    evp = torch.nn.functional.pad(e_v, (0, pad))
-    loc = torch.meshgrid(*(torch.arange(8),) * 3, indexing="ij")
-    compose = [[ORDERS.index(tuple(ORDERS[s][ORDERS[r][n]] for n in range(3)))
-                for r in range(6)] for s in range(6)]
-    total = torch.zeros(6, dtype=F64)
-    staged = torch.zeros(nt * 8, nt * 8, nt * 8, dtype=torch.long)
-    for p in range(len(ii)):
-        acc = torch.zeros(6, dtype=F64)
-        for T in tiles.tolist():
-            tup = [tuple(T[P[n]] for n in range(3)) for P in ORDERS]
-            smap = [tup.index(t) for t in tup]
-            sl = lambda s: tuple(slice(8 * t, 8 * t + 8) for t in tup[s])
-            for s in range(6):
-                if smap[s] != s:
-                    continue
-                if p == 0:
-                    staged[sl(s)] += 1
-                g = [(a * 8 + l) for a, l in zip(tup[s], loc)]
-                mask = (g[0] < v) & (g[1] < v) & (g[2] < v)
-
-                def reads(cube):
-                    out = []
-                    for r in range(6):
-                        t = padded[cube][p][sl(smap[compose[s][r]])]
-                        out.append(t[loc[ORDERS[r][0]], loc[ORDERS[r][1]], loc[ORDERS[r][2]]])
-                    return out
-
-                u, z = reads("x"), reads("z")
-                mx = 8.0 * u[0] - 4.0 * (u[1] + u[2] + u[3]) + 2.0 * (u[4] + u[5])
-                mz = 8.0 * z[0] - 4.0 * (z[1] + z[2] + z[3]) + 2.0 * (z[4] + z[5])
-                d = eo[p] - evp[g[0]] - evp[g[1]] - evp[g[2]]
-                yv, mv = padded["y"][p][sl(s)], padded["m"][p][sl(s)]
-                terms = [u[0] * mx, u[0] * mz, yv * mx, yv * mz, mv * mx, mv * mz]
-                acc += torch.stack([(x / d)[mask].sum() for x in terms])
-        total += w[p] * acc
+    sums, staged = _orbit_walk(cubes["x"], cubes["m"], cubes["y"], cubes["z"],
+                               K._denominator(eo, e_v), v, "M")
+    total = (w[:, None] * sums).sum(dim=0)
     assert int(staged.min()) == int(staged.max()) == 1
     scale = float(want.abs().max())
     assert float((total - want).abs().max()) <= 1e-12 * scale
+
+
+def _orbit_walk(x, m, y, zn, D, v, op):
+    """orbit_tile.cuh tile_triple_sums over every sorted tile triple, all
+    cubes (B, v, v, v) at once, as the kernels address their staged
+    tiles: each distinct tile of x and zn of a tile triple's six orders
+    staged once (zeros past v), each element's five partners read from
+    the staged tile that the order composition names, O (M or 3 xbar)
+    applied to both; y and m taken at the element.  Returns the (B, 6)
+    sums and how often each cube element was staged."""
+    nt = -(-v // 8)
+    pad = nt * 8 - v
+    P = lambda u: torch.nn.functional.pad(u, (0, pad, 0, pad, 0, pad))
+    xs, ms, ys, zs = P(x), P(m), P(y), P(zn)
+    Dp = torch.nn.functional.pad(D, (0, pad, 0, pad, 0, pad), value=1.0)
+    loc = torch.meshgrid(*(torch.arange(8),) * 3, indexing="ij")
+    compose = [[ORDERS.index(tuple(ORDERS[s][ORDERS[r][n]] for n in range(3)))
+                for r in range(6)] for s in range(6)]
+    if op == "M":
+        O = lambda u: 8.0 * u[0] - 4.0 * (u[1] + u[2] + u[3]) + 2.0 * (u[4] + u[5])
+    else:
+        O = lambda u: 4.0 * u[0] - 6.0 * u[2] + 2.0 * u[4]
+    acc = torch.zeros(x.shape[0], 6, dtype=F64)
+    staged = torch.zeros(nt * 8, nt * 8, nt * 8, dtype=torch.long)
+    for T in K.orbit_tiles(v).tolist():
+        tup = [tuple(T[Pm[n]] for n in range(3)) for Pm in ORDERS]
+        smap = [tup.index(t) for t in tup]
+        sl = lambda s: (slice(None),) + tuple(slice(8 * t, 8 * t + 8) for t in tup[s])
+        for s in range(6):
+            if smap[s] != s:
+                continue
+            staged[sl(s)[1:]] += 1
+            g = [(a * 8 + l) for a, l in zip(tup[s], loc)]
+            mask = (g[0] < v) & (g[1] < v) & (g[2] < v)
+
+            def reads(cube):
+                out = []
+                for r in range(6):
+                    t = cube[sl(smap[compose[s][r]])]
+                    out.append(t[:, loc[ORDERS[r][0]], loc[ORDERS[r][1]], loc[ORDERS[r][2]]])
+                return out
+
+            u = reads(xs)
+            d = Dp[sl(s)]
+            t, zt = O(u) / d, O(reads(zs)) / d
+            yv, mv = ys[sl(s)], ms[sl(s)]
+            terms = [u[0] * t, u[0] * zt, yv * t, yv * zt, mv * t, mv * zt]
+            acc += torch.stack([(x_ * mask).sum(dim=(1, 2, 3)) for x_ in terms], dim=1)
+    return acc, staged[:v, :v, :v]
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k5_orbit_tile_sums(o, v):
+    """K5's reduction (the same tiles with 3 xbar for M, over one
+    i-slab's panels of `finale_panels`, zn and y built from the panels'
+    factors as the kernel builds them) as `_orbit_walk` addresses it:
+    every element staged once, and the sums, divided by 3, equal K5's
+    plain version to 1e-12 relative."""
+    args = _tile_problem(o, v)[0]
+    x, m, mats, vecs, eo, t1i, ev = TT.finale_panels(o - 1, 0, *args, jlen=o, doing_CR=True)
+    tj, tk = vecs[:, 0], vecs[:, 1]
+    rank3 = lambda X1, X2, X3: (t1i[None, :, None, None] * X1[:, None, :, :]
+                                + tj[:, None, :, None] * X2[:, :, None, :]
+                                + tk[:, None, None, :] * X3[:, :, :, None])
+    zn = rank3(mats[:, 0], mats[:, 1], mats[:, 2])
+    y = (rank3(mats[:, 3], mats[:, 4], mats[:, 5])
+         + t1i[None, :, None, None] * tj[:, None, :, None] * tk[:, None, None, :])
+    sums, staged = _orbit_walk(x, m, y, zn, K._denominator(eo, ev), v, "Xbar")
+    got = sums.sum(dim=0) / 3.0
+    want = K.triples_finale_spatial_plain(x, m, mats, vecs, eo, t1i, ev, doing_T=True,
+                                          doing_Y=True, doing_CR=True)
+    assert int(staged.min()) == int(staged.max()) == 1
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("o,v", TILE_SHAPES)
+def test_k3_layout_kernel_decode(o, v):
+    """The layout kernel of K3 and K4 (csrc/spatial_gemm.cuh
+    layout_kernel) as it decodes each element of Lbuf, Rbuf and the term
+    offsets from its flat index, the nine bases of `layout_bases` and
+    the inputs, in torch: equal to `tiled_operands` and
+    `tiled_term_offsets` element for element."""
+    args, ops, (ii, jj, kk), _ = _tile_problem(o, v)
+    t1, t2, vvov, oovo, oovv, e_o, e_v, Iv, Jo = args
+    Np, Kv, Ko, NNp, _ = K.tiled_tile_dims(o, v)
+    lefts, rights, _, _, lsize, rsize = K.tiled_layout(o, v, True)
+    bases = K.layout_bases(o, v, True)
+    lb, rb = bases[:3], bases[3:]
+    want_L, want_R = K.tiled_operands(ops, True)
+    zero = torch.zeros((), dtype=F64)
+    flat = lambda u: u.reshape(-1)
+
+    e = torch.arange(lsize)
+    t = (e >= lb[1]).long() + (e >= lb[2]).long()
+    Kt = torch.where(t == 0, Kv, Ko)
+    rel = e - torch.tensor(lb)[t]
+    k, rest = rel % Kt, rel // Kt
+    x, pq = rest % Np, rest // Np
+    ok = x < v
+    L = torch.where(ok & (t == 0) & (k < v),
+                    flat(t2)[((pq * v + x) * v + k).clamp(max=t2.numel() - 1)], zero)
+    L = torch.where(ok & (t == 1) & (k < o),
+                    -flat(oovo)[((pq * v + x) * o + k).clamp(max=oovo.numel() - 1)], L)
+    L = torch.where(ok & (t == 2) & (k < o),
+                    -flat(Jo)[((pq * o + k) * v + x).clamp(max=Jo.numel() - 1)], L)
+    assert torch.equal(L, want_L)
+
+    er = torch.arange(rsize)
+    u = sum((er >= rb[q]).long() for q in range(1, 6))
+    name = u // 2
+    Kr = torch.where(name == 1, Ko, Kv)
+    rel = er - torch.tensor(rb)[u]
+    nn, rk = rel % NNp, rel // NNp
+    k, r = rk % Kr, rk // Kr
+    ok = (nn < v * v) & (k < torch.where(name == 1, o, v))
+    yy, zz = nn // v, nn % v
+    Y, Z = torch.where(u % 2 == 0, yy, zz), torch.where(u % 2 == 0, zz, yy)
+    srcs = {0: (vvov, ((Z * v + Y) * o + r) * v + k), 1: (t2, ((k * o + r) * v + Z) * v + Y),
+            2: (Iv, ((k * o + r) * v + Y) * v + Z)}
+    R = torch.zeros(rsize, dtype=F64)
+    for q, (tab, ix) in srcs.items():
+        R = torch.where(ok & (name == q), flat(tab)[ix.clamp(0, tab.numel() - 1)], R)
+    assert torch.equal(R, want_R)
+
+    dbase, dcoef = K._term_tables(o, v, ("x", "m"), torch.device("cpu"))
+    n = len(ii)
+    ed = torch.arange(2 * n * 24)
+    slot, qp = ed % 24, ed // 24
+    p, q = qp % n, qp // n
+    row = q * 24 + slot
+    dc = dcoef.reshape(-1)
+    desc = (dbase.reshape(-1)[row] + ii[p] * dc[3 * row] + jj[p] * dc[3 * row + 1]
+            + kk[p] * dc[3 * row + 2])
+    assert torch.equal(desc.view(2, n, 3, 8), K.tiled_term_offsets(ii, jj, kk, o, v, ("x", "m")))
+

@@ -20,8 +20,8 @@ DIR holds that design's `triples_tiled_spatial.cu` and
 it is built here with the package's nvcc flags and its `-Xptxas -v`
 report is printed, with that of DIR's `triples_finale.cu` (K2) when DIR
 has one.  With `--current`, the package's own K4 is timed on the same
-inputs through its wrapper's `split=` (stage-1 kernels, the wrapper's
-other work, stage 2).  The inputs are `chip_smoke.random_spatial_problem`'s
+inputs through its wrapper's `split=` (the three stage-1 group GEMMs,
+stage 2, the operand layout and the wrapper's other work).  The inputs are `chip_smoke.random_spatial_problem`'s
 at each (o, v), all variants on (T, R, CR), the sorted triples of
 `_sorted_plan`.  Prints one line per result and `nvidia-smi`'s name and
 power limit.
@@ -108,7 +108,8 @@ def split_parent(torch, lib, args, plan, reps: int) -> tuple[list[float], list[f
     ops = S.spatial_operands(t1, t2, vvov, oovo, oovv, Iv, Jo)
     ii, jj, kk = (x.long() for x in (si, sj, sk))
     eo = (e_o[ii] + e_o[jj] + e_o[kk]).contiguous()
-    clen, nb = S.tiled_chunk_len(n, v), S._reduce_blocks(v)
+    # that design's stage-2 grid: 8 elements a thread, at most 64 blocks a triple
+    clen, nb = S.tiled_chunk_len(n, v), max(1, min(64, -(-(v**3) // (8 * 256))))
     partials = torch.empty(n * nb * 6, dtype=torch.float64, device=t1.device)
     stream = vp(torch.cuda.current_stream().cuda_stream)
     tot = [0.0, 0.0, 0.0]
@@ -172,13 +173,14 @@ def split(torch, work: Path, src_dir: Path, shapes, current: bool) -> None:
               f"total_ms={sum(ms):.4f} sums={sums}", flush=True)
         if current:
             got = S.triples_tiled_spatial(*args, *plan[0], plan[1], **flags)
-            tot = [0.0, 0.0, 0.0]
+            tot = [0.0] * 5
             for _ in range(reps):
                 parts = []
                 S.triples_tiled_spatial(*args, *plan[0], plan[1], **flags, split=parts)
                 tot = [t + p / reps for t, p in zip(tot, parts)]
-            print(f"split current o={o} v={v}: stage1_ms={tot[0]:.4f} "
-                  f"wrapper_ms={tot[1]:.4f} stage2_ms={tot[2]:.4f} "
+            print(f"split current o={o} v={v}: group_ms={tot[:3]} "
+                  f"stage1_ms={sum(tot[:3]):.4f} stage2_ms={tot[3]:.4f} "
+                  f"operand_ms={tot[4]:.4f} total_ms={sum(tot):.4f} "
                   f"sums={got.tolist()}", flush=True)
         del args
 
