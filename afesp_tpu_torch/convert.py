@@ -49,6 +49,7 @@ def from_jax(*, device, sys_=None, ints=None, hf=None, slices=None, cc=None) -> 
             else int(ints.nbasis) if f.name == "nbasis"
             else _host(getattr(ints, f.name))
             for f in dataclasses.fields(IntStore)
+            if not f.name.startswith("_")  # a device cache is the owner's own
         })
     if hf is not None:
         out["hf"] = HFResult(

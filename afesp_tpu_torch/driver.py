@@ -90,7 +90,8 @@ def run_calculation(
     rep.write(" Reading nuclear-electron integrals...")
     rep.write(" Constructing core Hamiltonian...")
     rep.write(" Reading two-body integrals...")
-    sys_, ints = dat.read_integrals(workdir, cfg.restricted)
+    # on a card only the packed ERI store is kept on the host
+    sys_, ints = dat.read_integrals(workdir, cfg.restricted, host_dense=dev.type == "cpu")
     rep.write(" Done reading integrals!")
     rep.sys_info(sys_, ints, cfg)
     rep.stage_time(

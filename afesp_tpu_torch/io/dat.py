@@ -6,11 +6,17 @@ reference consumes (integrals.f90:48-165, geometry.f90:8-50): `s.dat`,
 lines), `eri.dat` (`i j k l value` canonical 8-fold-symmetric
 quadruples) and `geom.dat` (natoms; then charge x y z per atom, bohr).
 
-Everything here is host numpy: the arrays are the interchange format,
-and each stage moves what it needs to its device.  Unlike the JAX
+The text tables are parsed by the C scanner of `io/fastparse.py`, or
+by numpy where the scanner is switched off or cannot be built.  When a
+run directory holds the binary packed `eri.npy`, it is read in place of
+`eri.dat`, as the JAX package does (`afesp_tpu/io/dat.py:441-456`).
+
+The arrays read are host numpy, the interchange format.  The ERIs cross
+to a device once, packed, and are unpacked there by one gather
+(`IntStore.eri_on_device`); the dense host tensor is built only for a
+run on the CPU (`read_integrals(..., host_dense=True)`).  Unlike the JAX
 reader this one writes no cache file next to its inputs (nor anywhere
-else): `eri.dat` is parsed anew on every run.  The C `fastparse`
-scanner and the binary `eri.npy` tier are not ported yet.
+else): `eri.dat` is parsed anew on every run.
 """
 
 from __future__ import annotations
@@ -19,6 +25,10 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from ..ops.packed_eri import unpack_eri
+from . import fastparse
 
 
 @dataclasses.dataclass
@@ -36,7 +46,8 @@ class System:
 
 @dataclasses.dataclass
 class IntStore:
-    """AO integral store (integrals.f90:24-34), host arrays."""
+    """AO integral store (integrals.f90:24-34): host arrays, and one
+    cached device copy of the dense ERI (`eri_on_device`)."""
 
     e_nuc: float = 0.0
     nbasis: int = 0
@@ -46,11 +57,37 @@ class IntStore:
     core_hamil: np.ndarray | None = None
     eri: np.ndarray | None = None  # dense (n,n,n,n) chemist (ij|kl)
     eri_packed: np.ndarray | None = None  # 8-fold store, reference eri_ind order
+    _eri_dev: torch.Tensor | None = None  # the one device copy (eri_on_device)
+
+    def eri_on_device(self, device: str | torch.device) -> torch.Tensor:
+        """The dense ERI on `device`, made once and cached, as the JAX
+        package's `IntStore.eri_on_device` (`afesp_tpu/io/dat.py:58`):
+        HF's Fock build and the MP2 transform share it.  On a card only
+        the packed store crosses PCIe and `unpack_eri` builds the dense
+        tensor there; on the CPU the host dense tensor, where there is
+        one, is used in place."""
+        dev = torch.device(device)
+        if self._eri_dev is None or self._eri_dev.device != dev:
+            if self.eri_packed is not None and (dev.type != "cpu" or self.eri is None):
+                packed = torch.as_tensor(self.eri_packed, dtype=torch.float64, device=dev)
+                self._eri_dev = unpack_eri(packed, self.nbasis)
+            else:
+                self._eri_dev = torch.as_tensor(self.eri, dtype=torch.float64, device=dev)
+        return self._eri_dev
+
+    def free_device_eri(self) -> None:
+        """Drop the cached device ERI (after the MP2 transform nothing
+        reads it; at 116 bf this frees 1.45 GB for the CC stages)."""
+        self._eri_dev = None
 
 
 def _parse_numeric_table(path: Path, ncols: int) -> np.ndarray:
-    """Whitespace-table parser (the numpy route of the JAX reader, which
-    its tests hold bit-identical to the C scanner)."""
+    """Whitespace-table parser: the C scanner (`io/fastparse.py`), else
+    the numpy route, which gives the same table bit for bit."""
+    arr = fastparse.parse_doubles_file(path, ncols)
+    if arr is not None:
+        return arr
+    fastparse.ROUTES["numpy"] += 1
     arr = np.array(path.read_text().split(), dtype=np.float64)
     if arr.size % ncols != 0:
         raise ValueError(f"{path}: expected {ncols} columns")
@@ -164,13 +201,19 @@ def nuclear_repulsion(charges: np.ndarray, coords: np.ndarray) -> float:
 
 
 def read_integrals(
-    directory: str | Path, restricted: bool, require_eri: bool = True
+    directory: str | Path, restricted: bool, require_eri: bool = True,
+    host_dense: bool = True,
 ) -> tuple[System, IntStore]:
     """Read all input files from a run directory, mirroring the pipeline
     read_integrals_in (integrals.f90:48-165) + read_geometry_in
     (geometry.f90:8-50) including the occupied/virtual bookkeeping:
     restricted: nocc=nel/2, nvirt=nbasis-nocc; spin-orbital: nocc=nel,
     nvirt=(nbasis-nocc/2)*2 (geometry.f90:40-46).
+
+    The ERIs come from `eri.npy` (the packed store) when the directory
+    holds one, else from `eri.dat`.  `host_dense=False`, a run on a card,
+    keeps only the packed store (`ints.eri` stays None): the dense tensor
+    is then built on the device (`IntStore.eri_on_device`).
     """
     d = Path(directory)
     sys_ = System()
@@ -182,12 +225,26 @@ def read_integrals(
     ints.ele_nuc = read_dat_matrix(d / "v.dat", sys_.nbasis)
     ints.core_hamil = ints.ke + ints.ele_nuc
     ints.nbasis = sys_.nbasis
-    if require_eri or (d / "eri.dat").exists():
-        if not (d / "eri.dat").exists() and (d / "eri.npy").exists():
-            raise NotImplementedError("binary eri.npy inputs are not ported yet")
-        tab = read_eri_table(d / "eri.dat")
-        ints.eri_packed = pack_from_quadruple_table(tab, sys_.nbasis)
-        ints.eri = read_eri_dense(d / "eri.dat", sys_.nbasis, tab=tab)
+    if require_eri or (d / "eri.dat").exists() or (d / "eri.npy").exists():
+        n = sys_.nbasis
+        if (d / "eri.npy").exists():
+            # the binary packed store in eri_ind order; read first, as JAX does
+            src = np.load(d / "eri.npy", mmap_mode="r")
+            npair = n * (n + 1) // 2
+            if src.shape != (npair * (npair + 1) // 2,):
+                raise ValueError(
+                    f"eri.npy shape {src.shape} inconsistent with nbasis={n}"
+                )
+            packed = np.zeros(src.shape)
+            np.copyto(packed, src)
+            if host_dense:
+                ints.eri = unpack_eri_host(packed, n)
+        else:
+            tab = read_eri_table(d / "eri.dat")
+            packed = pack_from_quadruple_table(tab, n)
+            if host_dense:
+                ints.eri = read_eri_dense(d / "eri.dat", n, tab=tab)
+        ints.eri_packed = packed
 
     sys_.natoms, sys_.charges, sys_.coords = read_geometry(d / "geom.dat")
     sys_.nel = int(sys_.charges.sum())

@@ -14,7 +14,8 @@ trajectories match the reference to roundoff:
 
 The eigensolve and DIIS stay in host LAPACK/numpy as in the JAX host
 loop (at the reference's scale SCF is latency-bound); only the O(n^4)
-Fock build runs on the device, against an ERI uploaded once.  The TPU
+Fock build runs on the device, against the one device copy of the ERI
+that MP2 shares (`IntStore.eri_on_device`).  The TPU
 tiers of the JAX package (the >=100-bf device prelude, the split and
 stream Fock builds) are not ported.
 """
@@ -113,7 +114,7 @@ def do_rhf(
     S = ints.ovlp
     H = ints.core_hamil
     H_dev = torch.as_tensor(H, dtype=F64, device=dev)
-    eri_dev = torch.as_tensor(ints.eri, dtype=F64, device=dev)
+    eri_dev = ints.eri_on_device(dev)
     X = symmetric_orthogonaliser_np(S)
 
     if cfg.scf_read_guess:

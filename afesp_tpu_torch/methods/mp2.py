@@ -98,10 +98,12 @@ def do_mp2_spatial(
     rep.write(" Performing AO to MO ERI transformation...")
 
     nocc = sys_.nel // 2
-    eri = torch.as_tensor(ints.eri, dtype=F64, device=dev)
     C = torch.as_tensor(hf.coeff, dtype=F64, device=dev)
-    eri_mo = ao_to_mo(eri, C)
-    del eri
+    eri_mo = ao_to_mo(ints.eri_on_device(dev), C)
+    # nothing downstream reads the AO ERI: free the device copy (1.45 GB
+    # at 116 bf) before the CC stages, as `afesp_tpu/methods/mp2.py:315`
+    if sys_.nbasis >= 100:
+        ints.free_device_eri()
 
     rep.write(" Calculating MP2 energy...")
     levels = torch.as_tensor(hf.levels, dtype=F64, device=dev)

@@ -1,0 +1,46 @@
+"""8-fold-symmetric packed ERI <-> dense, with the unpack on the device.
+
+Port of `afesp_tpu/ops/packed_eri.py:22-51`.  The reference stores the
+ERI packed triangular-of-triangular (integrals.f90:10-45, `eri_ind`:
+pair index ij = i(i+1)/2 + j for i>=j, quad index = ij(ij+1)/2 + kl for
+ij>=kl).  The port uses the packed array as the transfer format: only
+the packed unique elements cross PCIe (184 MB at 116 bf, against 1.45 GB
+dense), and the dense (n,n,n,n) tensor every later stage reads is built
+on the device by one gather over an index map made there from `arange`.
+In the JAX package that gather is XLA's; here it is torch indexing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pack_eri(eri: torch.Tensor) -> torch.Tensor:
+    """Dense (n,n,n,n) chemist ERI -> packed unique elements, ordered by
+    the reference's eri_ind (integrals.f90:196-210): the canonical
+    quadruple (i>=j, k>=l, ij>=kl) sits at tri(ij) + kl with
+    tri(x) = x(x+1)/2, the order `torch.tril_indices` enumerates."""
+    n = eri.shape[0]
+    I, J = torch.tril_indices(n, n, device=eri.device)  # pair p=(i,j), i>=j
+    IJ, KL = torch.tril_indices(I.numel(), I.numel(), device=eri.device)  # ij>=kl
+    return eri[I[IJ], J[IJ], I[KL], J[KL]].contiguous()
+
+
+def unpack_eri(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Packed -> dense (n,n,n,n) as ONE gather on `packed`'s device.
+
+    The (n^2, n^2) index map is made on that device from `arange`
+    (uploading it would cost more than the dense tensor).  int32 index
+    arithmetic, as in the JAX package, is exact for n <= 300
+    (npair*(npair+1) < 2^31)."""
+    assert n <= 300, "int32 packed-index arithmetic overflows beyond n=300"
+    i = torch.arange(n, dtype=torch.int32, device=packed.device)
+    lo = torch.minimum(i[:, None], i[None, :])
+    hi = torch.maximum(i[:, None], i[None, :])
+    pair = (hi * (hi + 1) // 2 + lo).reshape(-1)  # (n^2,)
+    ij = pair[:, None]
+    kl = pair[None, :]
+    plo = torch.minimum(ij, kl)
+    phi = torch.maximum(ij, kl)
+    ind = phi * (phi + 1) // 2 + plo  # (n^2, n^2)
+    return packed[ind].reshape(n, n, n, n)

@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives `afesp_tpu_torch` — never the JAX package — through its two
-paths on H2O/cc-pVTZ (58 basis functions): CCSD(T)_spinorb (10 occupied
-and 106 virtual spin orbitals) and restricted CRCCSD(T)_spatial (5
-occupied and 53 virtual spatial orbitals), in nine phases, one line
-each with its wall time:
+Drives `afesp_tpu_torch` — never the JAX package — through its paths:
+on H2O/cc-pVTZ (58 basis functions) CCSD(T)_spinorb (10 occupied and
+106 virtual spin orbitals) and restricted CRCCSD(T)_spatial (5 occupied
+and 53 virtual spatial orbitals), and on the water dimer/cc-pVTZ (116
+basis functions, 10 occupied and 106 virtual spatial orbitals)
+restricted CRCCSD(T)_spatial from integrals the port's engine builds on
+the card.  Each phase prints one line with its wall time:
 
   1. the device: torch's name and count, and nvidia-smi's name and
      power limit;
-  2. the build of every CUDA kernel with nvcc, all five sources in
-     parallel, timed (the `-Xptxas -v` report is printed);
+  2. the build of the C scanner (`io/_fastparse.c`) and of every CUDA
+     kernel with nvcc, all five sources in parallel, timed (the
+     `-Xptxas -v` report is printed);
   3. each kernel against its plain PyTorch version on the card, on
      seeded random inputs: K1 and K2 at the spin-orbital path's shapes;
      K3, K4 and K5 at the spatial path's (o=5, v=53), the 116-bf dimer's
@@ -47,9 +50,28 @@ each with its wall time:
      CPU and on the card, and the CC iterations each file takes to
      restart a run on the card (the restarted energies are held to
      1e-8 of the writers');
-  9. one JSON line of the kernels, a row for each kernel at each shape
+  9. the pVTZ read-in (`read_integrals`) by the scanner and by the numpy
+     route, in turns, on the same files;
+ 10. the engine on the card at pVTZ ("fixture-cc-pvtz" at the committed
+     geometry): S, T, V against the committed s/t/v.dat, the ERIs within
+     1e-12 of the JAX engine's sample and no farther from the committed
+     eri.dat than the JAX engine is (an earlier form of that engine wrote
+     it);
+ 11. the dimer: s/t/v.dat and a packed eri.npy from the engine on the
+     card (the ERIs within 1e-12 of the JAX sample in
+     data/h2o-dimer-cc-pvtz/expected_jax_cpu_crccsd_t_spatial.json),
+     `run_calculation` through that eri.npy with the committed els.in
+     ("hybrid", run in f64): every breakdown value within 1e-8 of the
+     JAX package's f64 CPU run, equal SCF and CC iteration counts, HF and
+     MP2 within 1e-8 of oracle.json, K3 launched once and no other kernel;
+     then K3, K4 and K5 held and timed on the path's own amplitudes, and
+     the "tiled" and "pallas" tiers within 1e-10 of the K3 path;
+ 12. one JSON line of the kernels, a row for each kernel at each shape
      timed: launches on the path that runs it, times, bound, the bound's
      share of the time and errors, and the splits of K1, K3 and K4.
+
+On every path each text table must be parsed by the C scanner: a file
+that went through the numpy route fails the check.
 
 Every check raises on failure (nonzero exit, no `ok` line).  The last
 line is {"ok": true, "device": {...}}.  The script writes nothing into
@@ -72,6 +94,10 @@ REPO = Path(__file__).resolve().parent
 FIXTURE = REPO / "data" / "h2o-cc-pvtz-2.00_104.45"
 ERI = REPO / "data" / "h2o-cc-pvtz" / "eri.dat"
 SPATIAL_EXPECTED = FIXTURE / "expected_jax_cpu_crccsd_t_spatial.json"
+PVTZ_ERI_SAMPLE = FIXTURE / "expected_jax_cpu_eri_sample.json"
+DIMER = REPO / "data" / "h2o-dimer-cc-pvtz"
+DIMER_EXPECTED = DIMER / "expected_jax_cpu_crccsd_t_spatial.json"
+DIMER_BASIS = "cc-pvtz"  # tools/make_dimer.py
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the f64 tensor-core
 # peak (the f64 work of every kernel could at best run there)
 HBM_BYTES_PER_S = 3.35e12
@@ -82,6 +108,11 @@ KERNEL_RTOL = 1e-11
 KERNEL_FLOOR = 1e-6  # of the largest of a kernel's six sums
 ENERGY_TOL = 1e-8
 TRIPLES_TOL = 1e-9
+DIMER_TIER_TOL = 1e-10
+ERI_TOL = 1e-12
+# generated s/t/v.dat against committed ones, both printed to 15 decimals:
+# |difference| / max(1, |value|)
+DAT_RTOL = 1e-14
 
 
 @contextmanager
@@ -292,20 +323,23 @@ def six_sum_error(got, want) -> tuple[float, float]:
     return abs_err, rel_err
 
 
-def spatial_kernel_checks(torch, dev, o: int, v: int) -> dict:
+def spatial_kernel_checks(torch, dev, o: int, v: int, args=None, flags=None,
+                          label: str = "") -> dict:
     """K3, K4 and K5 against their plain versions at (o, v), all variants
     on (K3 and K5 up to nvirt 128, as their tiers run), with the kernels',
     the plain versions' and the library's times, the bounds and K3's and
     K4's splits.  Up to the spatial path's shape every time is a mean of 5
     launches; above it the kernels take 2, and the plain versions and
-    the all-torch f64 tier one launch each."""
+    the all-torch f64 tier one launch each.  The inputs are seeded random
+    ones unless `args` (and the path's variant `flags`) are given."""
     from afesp_tpu_torch.methods import triples_spatial as TS
     from afesp_tpu_torch.ops import triples_spatial_cuda as S
 
-    args = random_spatial_problem(torch, dev, o, v)
+    if args is None:
+        args = random_spatial_problem(torch, dev, o, v)
     (si, sj, sk), w = TS._sorted_plan(o, dev)
     n = si.numel()
-    flags = dict(doing_T=True, doing_R=True, doing_CR=True)
+    flags = flags or dict(doing_T=True, doing_R=True, doing_CR=True)
     rows = {}
 
     small = v <= 53
@@ -361,13 +395,14 @@ def spatial_kernel_checks(torch, dev, o: int, v: int) -> dict:
     if v <= 128:  # K5 is checked up to the dimer's shape, as K3
         # the panels of one i-slab, as the "pallas" tier builds them
         fa = TS.finale_panels(0, 0, *args, jlen=TS.pick_spatial_jlen(o, v, "pallas"),
-                              doing_CR=True)
-        fk = dict(doing_T=True, doing_Y=True, doing_CR=True)
+                              doing_CR=flags["doing_CR"])
+        fk = dict(doing_T=flags["doing_T"], doing_Y=flags["doing_R"] or flags["doing_CR"],
+                  doing_CR=flags["doing_CR"])
         r = rows["triples_finale_spatial"] = held(
             "triples_finale_spatial", lambda: S.triples_finale_spatial(*fa, **fk),
             lambda: S.triples_finale_spatial_plain(*fa, **fk))
         P = fa[0].shape[0]
-        r["shape"] = f"{P} panels of (v, v, v), v={v}"
+        r["shape"] = f"{P} panels of (v, v, v), v={v}{label}"
         # the plain version is one torch expression of the same function
         r["library_ms"] = r["plain_ms"]
         # ~45 flops an element: D, xbar of x and zn, zn at three points,
@@ -389,9 +424,293 @@ def spatial_kernel_checks(torch, dev, o: int, v: int) -> dict:
             "_make_spatial_kernel :97)"),
     }
     for name, r in rows.items():
-        r["shape"] = r.get("shape", f"o={o}, v={v}, {n} sorted triples")
+        r["shape"] = r.get("shape", f"o={o}, v={v}, {n} sorted triples{label}")
         r["source"], r["replaces"] = sources[name]
     return rows
+
+
+def scanner_routes_check(fastparse, path: str, at_least: int) -> dict:
+    """Every text table a path read went through the C scanner: none by
+    numpy, and at least `at_least` by the scanner."""
+    routes = dict(fastparse.ROUTES)
+    check(routes.get("numpy", 0) == 0, f"{path}: {routes.get('numpy')} file(s) parsed by numpy")
+    check(routes.get("scanner", 0) >= at_least,
+          f"{path}: {routes.get('scanner', 0)} file(s) through the scanner, {at_least} expected")
+    return routes
+
+
+def stage_wall(text: str, label: str) -> float:
+    """Seconds of the report's 'Time taken for <label>' line."""
+    line = next(ln for ln in text.splitlines() if f"Time taken for {label}" in ln)
+    return float(line.rsplit(None, 1)[1].rstrip("s"))
+
+
+def dat_agree(a: Path, b: Path) -> float:
+    """Two i-j-value `.dat` files: the same index columns, and the largest
+    difference of their values relative to max(1, |value|)."""
+    from afesp_tpu_torch.io import dat
+
+    ta, tb = dat._parse_numeric_table(a, 3), dat._parse_numeric_table(b, 3)
+    check(ta.shape == tb.shape and bool((ta[:, :2] == tb[:, :2]).all()),
+          f"{b.name}: the index columns differ from {a}")
+    rel = abs(ta[:, 2] - tb[:, 2]) / (abs(ta[:, 2]).clip(min=1.0))
+    return float(rel.max())
+
+
+def eri_sample_error(torch, packed, sample: dict) -> dict:
+    """The engine's packed store against a JAX sample: the largest error
+    over the sampled elements, and the sum's and Frobenius norm's."""
+    check(packed.numel() == sample["count"],
+          f"packed store of {packed.numel()} values, the sample's has {sample['count']}")
+    idx = torch.as_tensor(sample["index"], device=packed.device)
+    want = torch.as_tensor(sample["value"], dtype=torch.float64, device=packed.device)
+    err = float((packed[idx] - want).abs().max())
+    check(err <= ERI_TOL, f"ERIs off the JAX sample by {err:.3e}")
+    return dict(max_abs_err=err, sum_diff=float(packed.sum()) - sample["sum"],
+                frobenius_diff=float(torch.linalg.vector_norm(packed)) - sample["frobenius"])
+
+
+def engine_pvtz(torch, dev) -> None:
+    """The engine on the card against files it did not write: H2O at the
+    committed pVTZ geometry with "fixture-cc-pvtz"; S, T, V against the
+    committed s/t/v.dat; the ERIs against the JAX engine's sample and the
+    committed data/h2o-cc-pvtz/eri.dat, parsed by the scanner.  That file
+    was written by an earlier form of the JAX engine: the limit is the
+    JAX engine's own distance from it (in the sample file) plus ERI_TOL."""
+    from afesp_tpu_torch.integrals import engine as E
+    from afesp_tpu_torch.io import dat
+
+    sample = json.loads(PVTZ_ERI_SAMPLE.read_text())
+    info = {}
+    with phase("engine_pvtz", info):
+        # the Boys function on the card over T from 0 (the T < 1e-13
+        # branch) to 1e7, past what the dimer's primitives reach
+        T_ = torch.cat([torch.tensor([0.0, 1e-14, 1e-12], dtype=torch.float64),
+                        torch.logspace(-9, 7, 4000, dtype=torch.float64)])
+        boys_err = float((E.boys(12, T_.to(dev)).cpu() - E.boys(12, T_)).abs().max())
+        check(boys_err <= 1e-14, f"Boys function on the card off the CPU's by {boys_err:.3e}")
+        _, charges, coords = dat.read_geometry(FIXTURE / "geom.dat")
+        basis = E.build_basis(charges, coords, "fixture-cc-pvtz")
+        walls = {"1e": [], "eri": []}
+        for _ in range(2):  # the first pass pays the card's first use of each op
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mats = {"s.dat": E.overlap(basis, dev), "t.dat": E.kinetic(basis, dev),
+                    "v.dat": E.nuclear(basis, charges, coords, dev)}
+            torch.cuda.synchronize()
+            walls["1e"].append(round(time.perf_counter() - t0, 4))
+            t0 = time.perf_counter()
+            packed = E.eri_packed(basis, dev)
+            torch.cuda.synchronize()
+            walls["eri"].append(round(time.perf_counter() - t0, 4))
+        for name, M in mats.items():
+            ref = torch.as_tensor(dat.read_dat_matrix(FIXTURE / name, basis.nbf))
+            rel = float(((M.cpu() - ref).abs() / ref.abs().clamp(min=1.0)).max())
+            check(rel <= DAT_RTOL, f"{name}: engine off the committed file by {rel:.3e}")
+            info[f"{name}_rel_err"] = f"{rel:.3e}"
+        sampled = eri_sample_error(torch, packed, sample["eri_sample"])
+        committed = dat.pack_from_quadruple_table(dat.read_eri_table(ERI), basis.nbf)
+        d_file = float((packed - torch.as_tensor(committed, device=dev)).abs().max())
+        jax_file = sample["vs_committed_eri_dat"]["max_abs_diff"]
+        check(d_file <= jax_file + ERI_TOL,
+              f"ERIs off the committed eri.dat by {d_file:.3e}; the JAX engine by {jax_file:.3e}")
+        info.update(nbasis=basis.nbf, walls_cold_warm_s=json.dumps(walls),
+                    boys_err=f"{boys_err:.3e}", vs_jax_sample=json.dumps(sampled),
+                    vs_committed_eri_dat=f"{d_file:.3e}", jax_engine_vs_committed=f"{jax_file:.3e}")
+
+
+def read_in_walls(torch) -> None:
+    """The pVTZ read-in (`read_integrals` as a card run calls it, packed
+    store only) by the scanner and by the numpy route, on the same files
+    in the same call."""
+    from afesp_tpu_torch.io import dat, fastparse
+
+    wd = stage_workdir()
+    info = {}
+    try:
+        with phase("read_in_pvtz", info):
+            walls = {}
+            for route in ("numpy", "scanner", "numpy", "scanner"):
+                fastparse._LIB = False if route == "numpy" else None
+                t0 = time.perf_counter()
+                dat.read_integrals(wd, True, host_dense=False)
+                walls.setdefault(route, []).append(time.perf_counter() - t0)
+            fastparse._LIB = None
+            info.update({f"{k}_s": json.dumps([round(x, 4) for x in v])
+                         for k, v in walls.items()})
+    finally:
+        fastparse._LIB = None
+        shutil.rmtree(wd, ignore_errors=True)
+
+
+def dimer_phases(torch, dev, kernels: dict) -> tuple[dict, list]:
+    """The 116-bf water dimer, CRCCSD(T)_spatial, end to end on the card:
+    its integrals by the port's engine (ERIs packed into eri.npy), held
+    against the JAX sample and the committed s/t/v.dat; run_calculation
+    through the eri.npy read-in, held against the JAX package's CPU run
+    (every breakdown value within ENERGY_TOL, equal SCF and CC iteration
+    counts) and cross-checked against oracle.json; K3 once and no other
+    kernel on that path; then K3, K4 and K5 on the path's own amplitudes,
+    held against their plain versions and timed, and the "tiled" (K4) and
+    "pallas" (K5) tiers against the K3 path within DIMER_TIER_TOL.
+    Returns the kernels' launches on the path and its tiers, and the
+    kernel rows at the path's amplitudes."""
+    import io
+
+    import numpy as np
+
+    from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.integrals import engine as E
+    from afesp_tpu_torch.integrals.generate import write_dat_files
+    from afesp_tpu_torch.io import dat, fastparse
+    from afesp_tpu_torch.io.report import Reporter
+    from afesp_tpu_torch.methods import triples_spatial as TS
+
+    want = json.loads(DIMER_EXPECTED.read_text())
+    oracle = json.loads((DIMER / "oracle.json").read_text())
+    wd = Path(tempfile.mkdtemp(prefix="afesp_chip_dimer_"))
+    try:
+        info = {}
+        with phase("dimer_integrals", info):
+            _, charges, coords = dat.read_geometry(DIMER / "geom.dat")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            basis = write_dat_files(wd, charges, coords, DIMER_BASIS, write_eri=False,
+                                    device=dev)
+            wall_1e_files = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            E.overlap(basis, dev), E.kinetic(basis, dev), E.nuclear(basis, charges, coords, dev)
+            torch.cuda.synchronize()
+            wall_1e = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            packed = E.eri_packed(basis, dev)
+            torch.cuda.synchronize()
+            wall_eri = time.perf_counter() - t0
+            np.save(wd / "eri.npy", packed.cpu().numpy())
+            sampled = eri_sample_error(torch, packed, want["eri_sample"])
+            del packed
+            rels = {f: dat_agree(DIMER / f, wd / f) for f in ("s.dat", "t.dat", "v.dat")}
+            for f, rel in rels.items():
+                check(rel <= DAT_RTOL, f"dimer {f}: off the committed file by {rel:.3e}")
+            check((wd / "geom.dat").read_bytes() == (DIMER / "geom.dat").read_bytes(),
+                  "the generated geom.dat differs from the committed one")
+            shutil.copy(DIMER / "els.in", wd / "els.in")
+            info.update(nbasis=basis.nbf, wall_1e_s=f"{wall_1e:.3f}",
+                        wall_1e_with_files_s=f"{wall_1e_files:.3f}",
+                        wall_eri_s=f"{wall_eri:.3f}", vs_jax_sample=json.dumps(sampled),
+                        dat_rel_err=json.dumps({k: f"{v:.3e}" for k, v in rels.items()}))
+
+        info = {}
+        with phase("dimer_path", info):
+            for fn in kernels.values():
+                fn.launches = 0
+            fastparse.ROUTES.clear()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            res = run_calculation(wd, Reporter(stream=buf))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in kernels.items()}
+            routes = scanner_routes_check(fastparse, "dimer path", 3)
+            text = buf.getvalue()
+            tr = res.triples
+            e0 = res.e_hf + res.e_nuc
+            got = {"e_hf_total": e0, "e_mp2_corr": res.e_mp2, "e_ccsd_corr": res.e_ccsd,
+                   "t1_diagnostic": res.t1_diagnostic}
+            got.update({k: getattr(tr, k) for k in want["triples"]})
+            ref = {k: want[k] for k in ("e_hf_total", "e_mp2_corr", "e_ccsd_corr",
+                                        "t1_diagnostic")} | want["triples"]
+            errs = {k: abs(got[k] - ref[k]) for k in ref}
+            for label, val in printed_values(text, want["breakdown"]).items():
+                errs[label] = abs(val - want["breakdown_values"][label])
+            check(len(errs) == len(got) + len(want["breakdown_values"]),
+                  "the dimer breakdown block lacks a line of the reference's")
+            for key, err in errs.items():
+                check(err <= ENERGY_TOL, f"dimer {key}: off the JAX value by {err:.3e}")
+            check(res.hf.iterations == want["scf_iterations"],
+                  f"dimer SCF iterations {res.hf.iterations} vs JAX {want['scf_iterations']}")
+            check(res.cc.iterations == want["cc_iterations"],
+                  f"dimer CC iterations {res.cc.iterations} vs JAX {want['cc_iterations']}")
+            oracle_err = {"e_hf_total": abs(e0 - oracle["e_hf_total"]),
+                          "e_mp2_corr": abs(res.e_mp2 - oracle["e_mp2_corr"])}
+            for key, err in oracle_err.items():
+                check(err <= ENERGY_TOL, f"dimer {key}: off oracle.json by {err:.3e}")
+            check(tr.precision_used == "fused", f"dimer triples tier {tr.precision_used}")
+            check(launches["triples_fused_spatial"] == 1,
+                  f"K3 launched {launches['triples_fused_spatial']} times on the dimer path")
+            others = {n: c for n, c in launches.items() if n != "triples_fused_spatial" and c}
+            check(not others, f"other kernels launched on the dimer path: {others}")
+            walls = {"read_in": stage_wall(text, "system initialisation"),
+                     "rhf": stage_wall(text, "restricted Hartree-Fock"),
+                     "mp2": stage_wall(text, "restricted MP2"),
+                     "ccsd": stage_wall(text, "restricted CCSD:"),
+                     "triples": stage_wall(text, "restricted completely renormalised")}
+            walls["ccsd_per_iteration"] = walls["ccsd"] / res.cc.iterations
+            info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
+                        max_abs_err=f"{max(errs.values()):.3e}",
+                        scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
+                        oracle_scf_iterations=oracle["scf_iterations"],
+                        oracle_err=json.dumps({k: f"{v:.3e}" for k, v in oracle_err.items()}),
+                        walls_s=json.dumps({k: round(v, 4) for k, v in walls.items()}),
+                        routes=json.dumps(routes))
+        for line in text.splitlines():
+            if line.lstrip().startswith(("Time taken for", "CCSD arithmetic")):
+                print(f"  {line.strip()}", flush=True)
+
+        # K3, K4 and K5 on the path's own amplitudes, held and timed
+        info = {}
+        with phase("dimer_kernels", info):
+            cfg, cc, nocc = res.cfg, res.cc, res.sys.nocc
+            lv = torch.as_tensor(res.hf.levels, dtype=torch.float64, device=dev)
+            Iv, Jo = TS.cr_intermediates(cc.t1, cc.t2, cc.t1_prev, cc.t2_prev, cc.slices, nocc)
+            v = cc.slices
+            args = (cc.t1, cc.t2, v.v_vvov, v.v_oovo, v.v_oovv, lv[:nocc],
+                    lv[nocc : nocc + res.sys.nvirt], Iv, Jo)
+            flags = dict(doing_T=cfg.ccsd_t_paren, doing_R=cfg.ccsd_t_renorm,
+                         doing_CR=cfg.ccsd_t_comp_renorm)
+            rows = spatial_kernel_checks(torch, dev, o=nocc, v=res.sys.nvirt, args=args,
+                                         flags=flags, label=", dimer path's amplitudes")
+            info.update({n: f"rel={r['max_rel_err']:.3e},ms={r['ms']:.4f}"
+                         for n, r in rows.items()})
+
+        tier_launches = {"triples_fused_spatial": launches["triples_fused_spatial"]}
+        for tier, kname in (("tiled", "triples_tiled_spatial"),
+                            ("pallas", "triples_finale_spatial")):
+            info = {}
+            with phase(f"dimer_{tier}_tier", info):
+                for fn in kernels.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                ttr = TS.do_ccsd_t_spatial(res.sys, res.cc, res.cfg, res.hf.levels,
+                                           Reporter(stream=io.StringIO()), precision=tier)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                tier_launches[kname] = kernels[kname].launches
+                check(tier_launches[kname] > 0, f"{kname} not launched on the dimer {tier} tier")
+                check(ttr.precision_used == tier, f"dimer {tier} tier ran {ttr.precision_used}")
+                err = max(abs(getattr(ttr, k) - getattr(tr, k)) for k in want["triples"])
+                check(err <= DIMER_TIER_TOL, f"dimer {tier} tier off the K3 path by {err:.3e}")
+                info.update(wall_s=f"{wall:.3f}", max_abs_vs_fused=f"{err:.3e}",
+                            launches=json.dumps({kname: tier_launches[kname]}))
+        for name, r in rows.items():
+            r["launches"] = tier_launches[name]
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return tier_launches, list(rows.items())
+
+
+def printed_values(text: str, reference_block: list) -> dict:
+    """label -> value of the breakdown block in `text`, over as many lines
+    as `reference_block` has."""
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines) if "Final energy breakdown" in ln)
+    out = {}
+    for line in lines[start - 1 : start - 1 + len(reference_block)]:
+        label, sep, val = line.strip().rpartition(" ")
+        label = label.strip()
+        if sep and label.endswith(":"):
+            out[label] = float(val)
+    return out
 
 
 def stage_workdir(els_in: str | None = None) -> Path:
@@ -413,6 +732,7 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
     import io
 
     from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.io import fastparse
     from afesp_tpu_torch.io.report import Reporter
     from afesp_tpu_torch.methods.triples_spatial import do_ccsd_t_spatial
 
@@ -422,12 +742,14 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
         with phase("spatial_path", info):
             for fn in kernels.values():
                 fn.launches = 0
+            fastparse.ROUTES.clear()
             buf = io.StringIO()
             t0 = time.perf_counter()
             sres = run_calculation(wd, Reporter(stream=buf), device=device)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             spatial_launches = {n: fn.launches for n, fn in kernels.items()}
+            routes = scanner_routes_check(fastparse, "restricted path", 4)
             tr = sres.triples
             e0 = sres.e_hf + sres.e_nuc
             got = {"e_hf_total": e0, "e_mp2_corr": sres.e_mp2, "e_ccsd_corr": sres.e_ccsd,
@@ -440,11 +762,8 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
             lines = buf.getvalue().splitlines()
             start = next(i for i, ln in enumerate(lines) if "Final energy breakdown" in ln)
             block = lines[start - 1 : start - 1 + len(spatial["breakdown"])]
-            for line in block:
-                label, sep, val = line.strip().rpartition(" ")
-                label = label.strip()
-                if sep and label.endswith(":"):
-                    errs[label] = abs(float(val) - spatial["breakdown_values"][label])
+            for label, val in printed_values(buf.getvalue(), spatial["breakdown"]).items():
+                errs[label] = abs(val - spatial["breakdown_values"][label])
             check(len(errs) == len(want) + len(spatial["breakdown_values"]),
                   "the breakdown block lacks a line of the reference's")
             for key, err in errs.items():
@@ -460,7 +779,9 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
                            if ln.lstrip().startswith("Time taken for")]
             info.update(wall_s=f"{wall:.3f}", launches=json.dumps(spatial_launches),
                         max_abs_err=f"{max(errs.values()):.3e}",
-                        scf_iterations=sres.hf.iterations, cc_iterations=sres.cc.iterations)
+                        scf_iterations=sres.hf.iterations, cc_iterations=sres.cc.iterations,
+                        read_in_s=stage_wall(buf.getvalue(), "system initialisation"),
+                        routes=json.dumps(routes))
         for line in stage_walls:
             print(f"  {line}", flush=True)
         for line in block:
@@ -545,6 +866,7 @@ def main() -> int:
     import io
 
     from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.io import fastparse
     from afesp_tpu_torch.io.report import Reporter
     from afesp_tpu_torch.methods.triples_spinorb import do_ccsd_t_spinorb
     from afesp_tpu_torch.ops import _build
@@ -573,8 +895,12 @@ def main() -> int:
 
     info = {}
     with phase("build", info):
+        t0 = time.perf_counter()
+        scanner = fastparse.build()
+        scanner_s = time.perf_counter() - t0
         built = _build.build(list(kernels))
-        info.update(built={n: round(b["seconds"], 3) for n, b in built.items()})
+        info.update(built={n: round(b["seconds"], 3) for n, b in built.items()},
+                    scanner=f"{scanner.name} {scanner_s:.3f}")
     for name, b in built.items():
         for line in b["log"].strip().splitlines():
             print(f"  nvcc[{name}] {line}", flush=True)
@@ -613,12 +939,14 @@ def main() -> int:
         with phase("main_path", info):
             for fn in kernels.values():
                 fn.launches = 0
+            fastparse.ROUTES.clear()
             buf = io.StringIO()
             t0 = time.perf_counter()
             res = run_calculation(wd, Reporter(stream=buf))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {n: fn.launches for n, fn in kernels.items()}
+            routes = scanner_routes_check(fastparse, "spin-orbital path", 4)
             e0 = res.e_hf + res.e_nuc
             got = {
                 "e_hf_total": e0,
@@ -638,7 +966,9 @@ def main() -> int:
                            if ln.lstrip().startswith("Time taken for")]
             info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
                         max_abs_energy_err=f"{max(abs(v - expected[k]) for k, v in got.items()):.3e}",
-                        scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations)
+                        scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
+                        read_in_s=stage_wall(buf.getvalue(), "system initialisation"),
+                        routes=json.dumps(routes))
         for line in stage_walls:
             print(f"  {line}", flush=True)
         lines = buf.getvalue().splitlines()
@@ -670,6 +1000,10 @@ def main() -> int:
 
     spatial_launches, tier_launches = spatial_phases(torch, kernels, spatial)
     amplitudes_restart(torch, spatial)
+    read_in_walls(torch)
+    engine_pvtz(torch, dev)
+    dimer_launches, dimer_rows = dimer_phases(torch, dev, kernels)
+    table += dimer_rows
 
     # the path that runs each kernel: K1 the spin-orbital main path, K2 its
     # "pallas" tier, K3 the restricted path, K4 and K5 its "tiled" and
@@ -683,7 +1017,7 @@ def main() -> int:
         b_ms, b_by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": path_launches[name],
+            "replaces": r["replaces"], "launches": r.get("launches", path_launches[name]),
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"], "shape": r["shape"],

@@ -6,11 +6,13 @@ error path and what the port refuses."""
 import functools
 import io
 
+import numpy as np
 import pytest
 import torch
 from torch_fixtures import breakdown_block, table_energies, write_els_in, write_h2o
 
 import afesp_tpu.driver as jdriver
+from afesp_tpu.io import dat as jdat
 from afesp_tpu.io.report import Reporter as JaxReporter
 from afesp_tpu.methods import mp2 as jmp2
 from afesp_tpu.methods.triples_spatial import do_ccsd_t_spatial as jax_ccsd_t_spatial
@@ -95,14 +97,26 @@ def test_short_pipelines_match_jax(tmp_path, h2o, calc):
                                 ("CCSD(T)_spinorb", "mesh_devices = 2,\n", False)],
 )
 def test_unported_paths_raise(tmp_path, h2o, calc, extra, eri_npy_only):
+    """A mesh width of 2 is not ported and raises.  The eri.npy-only case
+    was the binary ERI tier, which the port now reads (fault F4): run from
+    a packed eri.npy written from the 24-bf H2O, its breakdown equals the
+    JAX driver's line for line."""
     for f in h2o.iterdir():
         if eri_npy_only and f.name == "eri.dat":
-            # the JAX package's binary ERI tier; the port reads text only
-            (tmp_path / "eri.npy").write_bytes(b"")
+            _, ji = jdat.read_integrals(h2o, True)
+            np.save(tmp_path / "eri.npy", ji.eri_packed)
         else:
             (tmp_path / f.name).symlink_to(f)
     (tmp_path / "els.in").unlink()
     write_els_in(tmp_path, calc, extra)
+    if eri_npy_only:
+        jres, jtext = _run_jax(tmp_path)
+        res, text = _run_port(tmp_path)
+        assert breakdown_block(text) == breakdown_block(jtext)
+        assert abs(res.total_energy - jres.total_energy) < 1e-10
+        assert res.hf.iterations == len(table_energies(jtext, "delta RMS D"))
+        assert res.cc.iterations == len(table_energies(jtext, "delta RMS T2"))
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         run_calculation(tmp_path, Reporter(stream=io.StringIO()), device="cpu")
     assert cli_main([str(tmp_path), "--device", "cpu"]) == 999

@@ -287,3 +287,58 @@ def test_pvtz_spatial_slice_on_the_card(tmp_path):
     assert res.hf.iterations == expected["scf_iterations"]
     assert res.cc.iterations == expected["cc_iterations"]
     assert res.cc.t1.device.type == "cuda"
+
+
+# --- the integral engine and the read-in on the card -----------------------
+
+
+@pytest.mark.parametrize("basis_name", ["cc-pvdz", "cc-pvtz"])
+def test_engine_on_the_card_matches_its_cpu_run(basis_name):
+    """S, T, V and the packed ERIs built on the card against the port's
+    own CPU engine, to 1e-12 absolute (H2O at 1.80 A, 104.45 deg)."""
+    from afesp_tpu_torch.integrals import engine as E
+    from afesp_tpu_torch.utils.wrapper import water_geometry
+
+    dev = _card()
+    charges, coords = water_geometry(1.80, 104.45)
+    basis = E.build_basis(charges, coords, basis_name)
+    for fn in (E.overlap, E.kinetic):
+        assert float((fn(basis, dev).cpu() - fn(basis, "cpu")).abs().max()) <= 1e-12
+    v = E.nuclear(basis, charges, coords, dev).cpu() - E.nuclear(basis, charges, coords, "cpu")
+    assert float(v.abs().max()) <= 1e-12
+    got = E.eri_packed(basis, dev)
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - E.eri_packed(basis, "cpu")).abs().max()) <= 1e-12
+
+
+def test_boys_on_the_card_matches_the_cpu():
+    """The Boys function through the card's gammainc over T from 0 (the
+    T < 1e-13 branch) to 1e7, past what the dimer's primitives reach,
+    every order to 12."""
+    from afesp_tpu_torch.integrals import engine as E
+
+    dev = _card()
+    T_ = torch.cat([torch.tensor([0.0, 1e-14, 1e-12], dtype=F64),
+                    torch.logspace(-9, 7, 4000, dtype=F64)])
+    got = E.boys(12, T_.to(dev)).cpu()
+    assert float((got - E.boys(12, T_)).abs().max()) <= 1e-14
+
+
+def test_device_unpack_matches_unpack_eri_host():
+    """The one gather on the card against the host unpack, bit for bit,
+    and IntStore.eri_on_device sends only the packed store."""
+    import numpy as np
+
+    from afesp_tpu_torch.io import dat
+    from afesp_tpu_torch.ops.packed_eri import pack_eri, unpack_eri
+
+    dev = _card()
+    n = 13
+    rng = np.random.default_rng(2)
+    npair = n * (n + 1) // 2
+    packed = rng.standard_normal(npair * (npair + 1) // 2)
+    got = unpack_eri(torch.as_tensor(packed, device=dev), n)
+    assert torch.equal(got.cpu(), torch.as_tensor(dat.unpack_eri_host(packed, n)))
+    assert torch.equal(pack_eri(got).cpu(), torch.as_tensor(packed))
+    ints = dat.IntStore(nbasis=n, eri_packed=packed)
+    assert torch.equal(ints.eri_on_device(dev), got)

@@ -33,6 +33,17 @@ def test_port_imports_no_jax(path):
         assert top not in ("jax", "jaxlib", "afesp_tpu"), f"{path.name} imports {name}"
 
 
+def test_guard_covers_the_read_in_engine_and_utilities():
+    """The import guard scans the read-in, the integral engine and the
+    utilities along with everything else of the port."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("io/dat.py", "io/fastparse.py", "ops/packed_eri.py",
+                "integrals/__init__.py", "integrals/engine.py", "integrals/generate.py",
+                "integrals/basis_data.py", "integrals/fixture_basis.py",
+                "utils/__init__.py", "utils/wrapper.py"):
+        assert f"afesp_tpu_torch/{mod}" in names, mod
+
+
 def test_port_runs_with_jax_unimportable():
     """A fresh interpreter in which `import jax` fails imports every port
     module, parses a config and builds a Config of every calc_type."""
