@@ -61,8 +61,14 @@ def from_jax(*, device, sys_=None, ints=None, hf=None, slices=None, cc=None) -> 
         slices = cc.slices
     if slices is not None:
         kind = Slices if hasattr(slices, "v_oovv") else SpinSlices
+        def field(x):
+            # a spin-orbital vvvv is None in block mode, its blocks a tuple
+            if x is None or isinstance(x, tuple):
+                return x and tuple(map(tensor, x))
+            return tensor(x)
+
         out["slices"] = kind(**{
-            f.name: tensor(getattr(slices, f.name)) for f in dataclasses.fields(kind)
+            f.name: field(getattr(slices, f.name)) for f in dataclasses.fields(kind)
         })
     if cc is not None and hasattr(cc, "t1_diagnostic"):
         out["cc"] = CCSDResult(

@@ -31,7 +31,7 @@ from .methods import hf as hf_mod
 from .methods import mp2 as mp2_mod
 from .methods.ccsd_spatial import CCSDResult, do_ccsd_spatial
 from .methods.ccsd_spinorb import CCSDSpinorbResult, do_ccsd_spinorb
-from .methods.triples_spatial import TriplesResult, do_ccsd_t_spatial
+from .methods.triples_spatial import TriplesResult, do_ccsd_t_spatial, triples_tier
 from .methods.triples_spinorb import do_ccsd_t_spinorb
 
 
@@ -121,7 +121,8 @@ def run_calculation(
             res.t1_diagnostic = cc.t1_diagnostic
             res.e_highest = cc.e_ccsd
             if cfg.wants_triples:
-                tr = do_ccsd_t_spatial(sys_, cc, cfg, hf.levels, rep)
+                tr = do_ccsd_t_spatial(sys_, cc, cfg, hf.levels, rep,
+                                       precision=triples_tier(cfg))
                 res.triples = tr
                 res.e_highest = tr.e_highest
         elif cfg.wants_ccsd:

@@ -11,12 +11,19 @@ the reference's F_oo tau~ term, which contracts as
 [m<->i]-transposed contraction, selected here by
 `ccsd_spinorb_equations = "paper"`).
 
-Every contraction is an f64 `torch.einsum` on the device.  The JAX
-package's digit and split GEMMs exist because the TPU has no f64; the
-H100 has, so `ccsd_precision` "hybrid"/"pallas"/"fused" run this same
-f64 iteration and the result says so (`precision_used`).  Only the dense
-spin-orbital vvvv is held; the block-compressed vvvv of the JAX package
-(`_BLOCK_VVVV_BYTES`) is not ported yet.
+Every contraction is f64 on the device.  Where the JAX package's f64
+iteration routes a contraction through `spin_blocked_einsum` (its `bs`
+and `hs`, `:367-392`), so does this one: the forbidden Sz blocks are
+skipped and the half-size blocks contracted with `torch.einsum`.  The
+JAX package's digit and split GEMMs exist because the TPU has no f64;
+the H100 has, so `ccsd_precision` "hybrid"/"pallas"/"fused" run this
+same f64 iteration and the result says so (`precision_used`).
+
+The spin-orbital vvvv is held dense while (2 nvirt)^4 f64 stays within
+`_BLOCK_VVVV_BYTES` (4e9 bytes), and above it, on every device as in the
+JAX package, as its two unique spin blocks (`SpinSlices.vvvv_blocks`,
+`ops/spin.spinorb_vvvv_blocks`): 2 x 1.0 GB at the 116-bf dimer, where
+the dense slice would take 16.2 GB.
 """
 
 from __future__ import annotations
@@ -33,7 +40,14 @@ from ..device import F64, default_device
 from ..io import dat
 from ..io.report import Reporter
 from ..ops.cc_step import cc_step, init_cc_state
-from ..ops.spin import spin_symmetry_error, spinorb_levels, spinorb_slice
+from ..ops.spin import (
+    spin_symmetry_error,
+    spin_symmetry_error_blocks,
+    spinorb_levels,
+    spinorb_slice,
+    spinorb_vvvv_blocks,
+)
+from ..ops.spin_einsum import spin_blocked_einsum
 from .hf import HFResult
 
 es = torch.einsum
@@ -51,7 +65,12 @@ class SpinSlices:
     ovvo: torch.Tensor
     ovvv: torch.Tensor
     vovv: torch.Tensor
-    vvvv: torch.Tensor
+    # None when the slice is held block-compressed (vvvv_blocks)
+    vvvv: torch.Tensor | None
+    # the unique (aa, ab) spin blocks of vvvv (ops/spin.spinorb_vvvv_blocks)
+    # when (2 nvirt)^4 f64 exceeds _BLOCK_VVVV_BYTES; every vvvv consumer
+    # then reads them
+    vvvv_blocks: tuple[torch.Tensor, torch.Tensor] | None = None
 
 
 @dataclasses.dataclass
@@ -66,33 +85,52 @@ class CCSDSpinorbResult:
     precision_used: str = "f64"
 
 
-def make_spin_slices(eri_mo: torch.Tensor, nocc_spatial: int) -> SpinSlices:
+def make_spin_slices(eri_mo: torch.Tensor, nocc_spatial: int,
+                     block_vvvv: bool = False) -> SpinSlices:
+    """The nine antisymmetrised slices; with block_vvvv, vvvv is held as
+    its two unique spin blocks instead of the dense (2 nvirt)^4 tensor."""
+    names = [f.name for f in dataclasses.fields(SpinSlices) if f.name != "vvvv_blocks"]
     return SpinSlices(
         **{
-            f.name: spinorb_slice(eri_mo, f.name, nocc_spatial)
-            for f in dataclasses.fields(SpinSlices)
-        }
+            name: None if block_vvvv and name == "vvvv"
+            else spinorb_slice(eri_mo, name, nocc_spatial)
+            for name in names
+        },
+        vvvv_blocks=spinorb_vvvv_blocks(eri_mo, nocc_spatial) if block_vvvv else None,
     )
 
 
-def tau_vvvv_blocked(tau: torch.Tensor, vvvv: torch.Tensor) -> torch.Tensor:
+def tau_vvvv_blocked(tau: torch.Tensor, vvvv: torch.Tensor | None,
+                     blocks: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
     """0.5 * einsum('ijef,efab->ijab', tau, vvvv), exploiting the spin
     block-sparsity of the antisymmetrised slices in block spin order:
     <ef||ab> vanishes unless multiset{spin e, spin f} == multiset{spin a,
     spin b}, and antisymmetry in (e<->f) and (a<->b) collapses the four
     mixed-spin blocks onto one GEMM.  Three GEMMs instead of one 16x
     larger one; the skipped blocks are exact zeros.  Falls back to the
-    dense einsum for odd nv."""
-    nv = vvvv.shape[0]
-    if nv % 2:
-        return 0.5 * es("ijef,efab->ijab", tau, vvvv)
-    vs = nv // 2
-    A, B = slice(0, vs), slice(vs, None)
-    out_aa = es("ijef,efab->ijab", tau[:, :, A, A], vvvv[A, A, A, A])
-    out_bb = es("ijef,efab->ijab", tau[:, :, B, B], vvvv[B, B, B, B])
+    dense einsum for odd nv.
+
+    blocks: the (aa, ab) unique spin blocks when vvvv is held
+    block-compressed (SpinSlices.vvvv_blocks): the same three GEMMs, with
+    the bb block read from aa (identical for closed shells in block spin
+    order)."""
+    if blocks is not None:
+        aa_blk, ab_blk = blocks
+        vs = aa_blk.shape[0]
+        A, B = slice(0, vs), slice(vs, None)
+        bb_blk = aa_blk
+    else:
+        nv = vvvv.shape[0]
+        if nv % 2:
+            return 0.5 * es("ijef,efab->ijab", tau, vvvv)
+        vs = nv // 2
+        A, B = slice(0, vs), slice(vs, None)
+        aa_blk, bb_blk, ab_blk = vvvv[A, A, A, A], vvvv[B, B, B, B], vvvv[A, B, A, B]
+    out_aa = es("ijef,efab->ijab", tau[:, :, A, A], aa_blk)
+    out_bb = es("ijef,efab->ijab", tau[:, :, B, B], bb_blk)
     # the (e alpha, f beta) and (e beta, f alpha) contributions are equal
     # by simultaneous antisymmetry of tau and vvvv in (e,f)
-    out_ab = 2.0 * es("ijef,efab->ijab", tau[:, :, A, B], vvvv[A, B, A, B])
+    out_ab = 2.0 * es("ijef,efab->ijab", tau[:, :, A, B], ab_blk)
     # <ef||ab> = -<ef||ba>: the (beta a, alpha b) block is the negated
     # transpose of the (alpha a, beta b) block
     out_ba = -out_ab.permute(0, 1, 3, 2)
@@ -102,6 +140,13 @@ def tau_vvvv_blocked(tau: torch.Tensor, vvvv: torch.Tensor) -> torch.Tensor:
 
 
 def _iteration_core(t1, t2, v: SpinSlices, D_ia, D_ijab, *, paper_foo: bool):
+    # Sz-block-sparse evaluation (`bs`, ops/spin_einsum.py) wherever the
+    # JAX package's f64 iteration uses it: forbidden spin blocks are
+    # exact zeros, so skipping them is exact up to f64 reassociation.
+    # Only even spin-orbital extents qualify (always true for the
+    # closed-shell spin-orbital path).
+    bs = spin_blocked_einsum if t1.shape[0] % 2 == 0 and t1.shape[1] % 2 == 0 else es
+
     # -------- tau / tau~ (ccsd.f90:678-715) --------
     x = es("ia,jb->ijab", t1, t1)
     x = x - x.permute(0, 1, 3, 2)
@@ -109,29 +154,29 @@ def _iteration_core(t1, t2, v: SpinSlices, D_ia, D_ijab, *, paper_foo: bool):
     tau = t2 + x
 
     # -------- F intermediates (ccsd.f90:717-797) --------
-    F_vv = es("mf,mafe->ae", t1, v.ovvv) + 0.5 * es("mnaf,mnfe->ae", tau_tilde, v.oovv)
+    F_vv = bs("mf,mafe->ae", t1, v.ovvv) + 0.5 * bs("mnaf,mnfe->ae", tau_tilde, v.oovv)
     if paper_foo:
         # Stanton Eq. 5: 0.5 tau~[i,n,e,f] <mn||ef>
-        foo_tau = es("inef,mnef->mi", tau_tilde, v.oovv)
+        foo_tau = bs("inef,mnef->mi", tau_tilde, v.oovv)
     else:
         # code-faithful tau~ contraction (ccsd.f90:792-795)
-        foo_tau = es("mnef,inef->mi", tau_tilde, v.oovv)
-    F_oo = -es("ne,nmie->mi", t1, v.ooov) + 0.5 * foo_tau
+        foo_tau = bs("mnef,inef->mi", tau_tilde, v.oovv)
+    F_oo = -bs("ne,nmie->mi", t1, v.ooov) + 0.5 * foo_tau
     F_ov = es("nf,mnef->me", t1, v.oovv)
 
     # -------- W intermediates (ccsd.f90:799-905) --------
     # W_mnij kept in natural [m,n,i,j] order (stored as [i,j,m,n] upstream)
     w1 = es("mnie,je->mnij", v.ooov, t1)
-    W_oooo = v.oooo + w1 - w1.permute(0, 1, 3, 2) + 0.5 * es("mnef,ijef->mnij", v.oovv, tau)
+    W_oooo = v.oooo + w1 - w1.permute(0, 1, 3, 2) + 0.5 * bs("mnef,ijef->mnij", v.oovv, tau)
     # W_abef (Eq. 7) is not materialised: its contributions to the T2
     # equation are fused below, so no O(v^4) temporary beyond vvvv exists.
     # W_mbej (Eq. 8)
     Z = 0.5 * t2 + es("jf,nb->jnfb", t1, t1)  # [j,n,f,b]
     W_ovvo = (
         v.ovvo
-        + es("mbef,jf->mbej", v.ovvv, t1)
+        + bs("mbef,jf->mbej", v.ovvv, t1)
         + es("nb,nmej->mbej", t1, v.oovo)
-        - es("mnef,jnfb->mbej", v.oovv, Z)
+        - bs("mnef,jnfb->mbej", v.oovv, Z)
     )
 
     # -------- T1 (Eq. 1; ccsd.f90:933-965) --------
@@ -140,7 +185,7 @@ def _iteration_core(t1, t2, v: SpinSlices, D_ia, D_ijab, *, paper_foo: bool):
         - es("mi,ma->ia", F_oo, t1)
         + es("me,maei->ia", t1, v.ovvo)
         + es("miea,me->ia", t2, F_ov)
-        + 0.5 * es("mife,mafe->ia", t2, v.ovvv)
+        + 0.5 * bs("mife,mafe->ia", t2, v.ovvv)
         - 0.5 * es("mnea,mnei->ia", t2, v.oovo)
     )
     t1_new = tmp_t1 / D_ia
@@ -148,7 +193,7 @@ def _iteration_core(t1, t2, v: SpinSlices, D_ia, D_ijab, *, paper_foo: bool):
     # -------- T2 (Eq. 2; ccsd.f90:967-1031) --------
     # three-operand terms are contracted pairwise in a fixed order, so
     # no o^3 v^3 intermediate can appear whatever einsum's path finder
-    s = -es("imbj,ma->ijab", es("ie,mbej->imbj", t1, v.ovvo), t1) + es(
+    s = -es("imbj,ma->ijab", es("ie,mbej->imbj", t1, v.ovvo), t1) + bs(
         "miea,mbej->ijab", t2, W_ovvo
     )
     tmp_t2 = (
@@ -158,23 +203,23 @@ def _iteration_core(t1, t2, v: SpinSlices, D_ia, D_ijab, *, paper_foo: bool):
         - s.permute(0, 1, 3, 2)
         + s.permute(1, 0, 3, 2)
     )
-    s = es("ijae,be->ijab", t2, F_vv)
+    s = bs("ijae,be->ijab", t2, F_vv)
     tmp_t2 += s - s.permute(0, 1, 3, 2)
     s = es("ijae,be->ijab", t2, es("mb,me->be", t1, F_ov))
     tmp_t2 -= 0.5 * (s - s.permute(0, 1, 3, 2))
     s = es("im,mjab->ijab", es("ie,me->im", t1, F_ov), t2)
     tmp_t2 -= 0.5 * (s - s.permute(1, 0, 2, 3))
-    s = es("ie,ejab->ijab", t1, v.vovv)
+    s = bs("ie,ejab->ijab", t1, v.vovv)
     tmp_t2 += s - s.permute(1, 0, 2, 3)
     s = es("ijbm,ma->ijab", v.oovo, t1)
     tmp_t2 += s - s.permute(0, 1, 3, 2)
     s = es("mi,mjab->ijab", F_oo, t2)
     tmp_t2 -= s - s.permute(1, 0, 2, 3)
-    tmp_t2 += 0.5 * es("mnij,mnab->ijab", W_oooo, tau)
+    tmp_t2 += 0.5 * bs("mnij,mnab->ijab", W_oooo, tau)
     # 0.5 tau_ijef W_abef with W_abef = <ab||ef> + P_(ab) t1[m,b] <ma||ef>,
     # fused: the t1 part factors through G[i,j,m,a] = tau_ijef <ma||ef>
-    tmp_t2 += tau_vvvv_blocked(tau, v.vvvv)
-    G = es("ijef,maef->ijma", tau, v.ovvv)
+    tmp_t2 += tau_vvvv_blocked(tau, v.vvvv, blocks=v.vvvv_blocks)
+    G = bs("ijef,maef->ijma", tau, v.ovvv)
     tmp_t2 += 0.5 * (es("ijma,mb->ijab", G, t1) - es("ijmb,ma->ijab", G, t1))
     t2_new = tmp_t2 / D_ijab
 
@@ -203,17 +248,28 @@ def spinorb_denominators(levels_so: torch.Tensor, nocc: int):
 
 
 def spinorb_cc_init(eri_mo: torch.Tensor, levels: torch.Tensor, nocc_spatial: int,
-                    selfcheck: bool = True):
+                    selfcheck: bool = True, block_vvvv: bool = False):
     """Slices, denominators, the MP1 guess, its energy, and the
-    permutational-symmetry self-check error (ccsd.f90:150-173)."""
-    v = make_spin_slices(eri_mo, nocc_spatial)
+    permutational-symmetry self-check error (ccsd.f90:150-173); with
+    block_vvvv the slice is held, and checked, as its spin blocks."""
+    v = make_spin_slices(eri_mo, nocc_spatial, block_vvvv=block_vvvv)
     lv = spinorb_levels(levels, nocc_spatial)
     D_ia, D_ijab = spinorb_denominators(lv, 2 * nocc_spatial)
     t1 = torch.zeros_like(D_ia)
     t2 = v.oovv / D_ijab  # MP1 guess (ccsd.f90:523)
     e0, r0 = cc_energy_spinorb(t1, t2, torch.zeros_like(t2), v.oovv)
-    err = spin_symmetry_error(v.oooo, v.oovv, v.vvvv) if selfcheck else e0.new_zeros(())
+    if selfcheck and block_vvvv:
+        err = spin_symmetry_error_blocks(v.oooo, v.oovv, *v.vvvv_blocks)
+    elif selfcheck:
+        err = spin_symmetry_error(v.oooo, v.oovv, v.vvvv)
+    else:
+        err = e0.new_zeros(())
     return v, D_ia, D_ijab, t1, t2, e0, r0, err
+
+
+# dense-vvvv byte budget above which do_ccsd_spinorb holds the slice
+# block-compressed (tests lower this to force the path on small fixtures)
+_BLOCK_VVVV_BYTES = 4e9
 
 
 def do_ccsd_spinorb(
@@ -233,8 +289,12 @@ def do_ccsd_spinorb(
 
     eri_mo = eri_mo.to(device=dev, dtype=F64)
     levels = torch.as_tensor(hf.levels, dtype=F64, device=dev)
+    # dense vvvv is nvirt^4 f64 (spin-orbital nvirt); above 4 GB it is
+    # held as its two unique spin blocks, on every device (16x smaller)
+    block_vvvv = sys_.nvirt**4 * 8 > _BLOCK_VVVV_BYTES
     v, D_ia, D_ijab, t1, t2, e0, r0, selfcheck_err = spinorb_cc_init(
-        eri_mo, levels, sys_.nel // 2, selfcheck=cfg.spinorb_selfcheck
+        eri_mo, levels, sys_.nel // 2, selfcheck=cfg.spinorb_selfcheck,
+        block_vvvv=block_vvvv,
     )
     if cfg.spinorb_selfcheck:
         # the reference's typo is part of the output format
@@ -279,7 +339,8 @@ def do_ccsd_spinorb(
         # the reference compares against depsilon=1e-12 on exact Fortran
         # copies; the tolerance scales with the number of summed elements
         # as in the JAX package (still ~9 orders below a real violation)
-        tol = max(1e-10, 1e-13 * 2 * (v.oooo.numel() + v.vvvv.numel()))
+        vvvv_size = v.vvvv.numel() if v.vvvv is not None else 16 * v.vvvv_blocks[0].numel()
+        tol = max(1e-10, 1e-13 * 2 * (v.oooo.numel() + vvvv_size))
         if err > tol:
             rep.write(f" Permutational symmetry error: {err:15.6E}")
             raise RuntimeError(

@@ -25,9 +25,12 @@ Four tiers, all f64:
 With `precision=None` the tier is "fused" on a CUDA device when
 nvirt <= 128 and "tiled" above (the JAX package's choice by size; the
 port's kernels have no 128 cap), and "f64" on the CPU.  "hybrid" (f32
-panel GEMMs on the TPU) is taken as "f64".  A kernel that fails raises:
-the JAX package's VMEM-degrade memo is not carried over.  The device
-mesh is not ported.
+panel GEMMs on the TPU) is taken as "f64".  The driver takes the tier
+from `ccsd_precision` as the JAX driver does (`triples_tier`): "pallas"
+and "fused" name their tiers; "f64" and "hybrid" get the size default,
+so on a card "f64" runs K3 or K4 (every CUDA tier is f64).  A kernel
+that fails raises: the JAX package's VMEM-degrade memo is not carried
+over.  The device mesh is not ported.
 """
 
 from __future__ import annotations
@@ -346,6 +349,13 @@ def default_precision(dev: torch.device, nvirt: int) -> str:
     if dev.type != "cuda":
         return "f64"
     return "fused" if nvirt <= 128 else "tiled"
+
+
+def triples_tier(cfg: Config) -> str | None:
+    """The tier `ccsd_precision` asks for (JAX `do_ccsd_t_spatial`
+    `:530-549`): "pallas" and "fused" as named, None (the size default)
+    for "f64" and "hybrid"."""
+    return cfg.ccsd_precision if cfg.ccsd_precision in ("pallas", "fused") else None
 
 
 def do_ccsd_t_spatial(

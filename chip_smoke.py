@@ -8,8 +8,12 @@ on H2O/cc-pVTZ (58 basis functions) CCSD(T)_spinorb (10 occupied and
 106 virtual spin orbitals) and restricted CRCCSD(T)_spatial (5 occupied
 and 53 virtual spatial orbitals), and on the water dimer/cc-pVTZ (116
 basis functions, 10 occupied and 106 virtual spatial orbitals)
-restricted CRCCSD(T)_spatial from integrals the port's engine builds on
-the card.  Each phase prints one line with its wall time:
+restricted CRCCSD(T)_spatial and CCSD(T)_spinorb (20 occupied and 212
+virtual spin orbitals, the vvvv slice held as its spin blocks), and on
+the water trimer/cc-pVTZ (174 basis functions, 15 occupied and 159
+virtual spatial orbitals) restricted CRCCSD(T)_spatial, both from
+integrals the port's engine builds on the card.  Each phase prints one
+line with its wall time:
 
   1. the device: torch's name and count, and nvidia-smi's name and
      power limit;
@@ -66,7 +70,26 @@ the card.  Each phase prints one line with its wall time:
      MP2 within 1e-8 of oracle.json, K3 launched once and no other kernel;
      then K3, K4 and K5 held and timed on the path's own amplitudes, and
      the "tiled" and "pallas" tiers within 1e-10 of the K3 path;
- 12. one JSON line of the kernels, a row for each kernel at each shape
+ 12. the spin-orbital dimer: the same inputs with the committed els.in
+     at calc_type "CCSD(T)_spinorb" and ccsd_precision "f64" through
+     `run_calculation`: vvvv held as its two spin blocks by the 4e9-byte
+     rule, every breakdown value within 1e-8 of the JAX package's CPU
+     run (expected_jax_cpu_ccsd_t_spinorb.json), E(T) within 1e-8 of
+     JAX's f64 tier, equal SCF and CC iteration counts, K1 once and no
+     other kernel, the card's peak memory; CCSD corr and E(T) against the
+     restricted dimer printed, not gated; then K1 held and timed on the
+     path's amplitudes, and the "pallas" tier (K2) within 1e-9 of K1's
+     E(T), with K2's row on its first chunk of panels;
+ 13. the trimer: the engine's one-electron integrals against the
+     committed s/t/v.dat and its ERIs packed into eri.npy beside copies
+     of the committed inputs; the committed els.in ("hybrid", run in
+     f64) through `run_calculation`: every breakdown value within 1e-8
+     of the JAX package's f64 CPU run and equal SCF and CC iteration
+     counts (data/h2o-trimer-cc-pvtz/expected_jax_cpu_crccsd_t_spatial
+     .json, whose ERI sample holds the engine's to 1e-12), HF and MP2
+     within 1e-8 of oracle.json, K4 once and no other kernel, the card's
+     peak memory; then K4 held and timed on the path's amplitudes;
+ 14. one JSON line of the kernels, a row for each kernel at each shape
      timed: launches on the path that runs it, times, bound, the bound's
      share of the time and errors, and the splits of K1, K3 and K4.
 
@@ -97,6 +120,9 @@ SPATIAL_EXPECTED = FIXTURE / "expected_jax_cpu_crccsd_t_spatial.json"
 PVTZ_ERI_SAMPLE = FIXTURE / "expected_jax_cpu_eri_sample.json"
 DIMER = REPO / "data" / "h2o-dimer-cc-pvtz"
 DIMER_EXPECTED = DIMER / "expected_jax_cpu_crccsd_t_spatial.json"
+SPINORB_DIMER_EXPECTED = DIMER / "expected_jax_cpu_ccsd_t_spinorb.json"
+TRIMER = REPO / "data" / "h2o-trimer-cc-pvtz"
+TRIMER_EXPECTED = TRIMER / "expected_jax_cpu_crccsd_t_spatial.json"
 DIMER_BASIS = "cc-pvtz"  # tools/make_dimer.py
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the f64 tensor-core
 # peak (the f64 work of every kernel could at best run there)
@@ -184,6 +210,10 @@ def k1_bound(o: int, v: int, n: int, args) -> tuple[float, str]:
     return bound_ms(n * v**3 * (6 * (v + o) + 5 + 11), in_bytes + 8)
 
 
+K1_SOURCE = "afesp_tpu_torch/csrc/triples_fused.cu"
+K1_REPLACES = "afesp_tpu/ops/triples_pallas.py:926 (triples_fused, body _fused_kernel :308)"
+
+
 def k1_split(K, args, idx, reps: int = 3) -> list[float]:
     """K1's numerator and energy-pass launches, each summed over the
     chunks by CUDA events around it: the mean [numerator, energy] ms of
@@ -196,17 +226,18 @@ def k1_split(K, args, idx, reps: int = 3) -> list[float]:
     return tot
 
 
-def k1_dimer_check(torch, dev, o: int = 20, v: int = 212) -> dict:
+def k1_dimer_check(torch, dev, o: int = 20, v: int = 212, args=None, label: str = "") -> dict:
     """K1 at the spin-orbital dimer's shape (data/h2o-dimer-cc-pvtz: 20
     occupied, 212 virtual spin orbitals, 1140 strict triples) on seeded
-    random inputs: held against its plain version to KERNEL_RTOL, two
-    launches bit-identical, kernel ms over 2 launches after a warm-up,
-    the plain version's and the all-torch f64 tier's ms over one launch
-    each, its bound and its split."""
+    random inputs, or on `args` (the path's own): held against its plain
+    version to KERNEL_RTOL, two launches bit-identical, kernel ms over 2
+    launches after a warm-up, the plain version's and the all-torch f64
+    tier's ms over one launch each, its bound and its split."""
     from afesp_tpu_torch.methods import triples_spinorb as T
     from afesp_tpu_torch.ops import triples_cuda as K
 
-    args = random_problem(torch, dev, o, v)
+    if args is None:
+        args = random_problem(torch, dev, o, v)
     idx = tuple(torch.as_tensor(x, dtype=torch.long, device=dev)
                 for x in T.strict_triple_list(o))
     n = idx[0].numel()
@@ -223,12 +254,46 @@ def k1_dimer_check(torch, dev, o: int = 20, v: int = 212) -> dict:
                         if not isinstance(x, int) else x for x in T.strict_plan(o, v))
     library = lambda: 6.0 * T._triples_total_strict(*args, pi, pj, pk, clen=clen,
                                                     precision="f64")
-    return dict(shape=f"o={o}, v={v}, {n} strict triples", max_abs_err=abs(g - w),
+    return dict(shape=f"o={o}, v={v}, {n} strict triples{label}", max_abs_err=abs(g - w),
                 max_rel_err=rel, ms=cuda_ms(torch, lambda: K.triples_fused(*args, *idx), 2),
                 plain_ms=cuda_ms(torch, lambda: K.triples_fused_plain(*args, *idx), 1,
                                  warm=False),
                 library_ms=cuda_ms(torch, library, 1, warm=False),
                 bound=k1_bound(o, v, n, args), split_ms=k1_split(K, args, idx, 1))
+
+
+def k2_row(torch, dev, args, o: int, v: int, label: str = "") -> dict:
+    """K2 at the "pallas" tier's chunk shape, (clen, v, v, v) panels of
+    the first chunk of strict triples of `args`: two launches
+    bit-identical; the kernel's and the plain version's ms over 5 calls;
+    the caller holds `got` against `want`."""
+    from afesp_tpu_torch.methods import triples_spinorb as T
+    from afesp_tpu_torch.ops import triples_cuda as K
+
+    pi, pj, pk, clen = (torch.as_tensor(x, dtype=torch.long, device=dev)
+                        if not isinstance(x, int) else x for x in T.strict_plan(o, v))
+    t3c, t3d = T._chunk_panels(pi[:clen], pj[:clen], pk[:clen], *args[:5])
+    e_o, e_v = args[5], args[6]
+    eo_sum = (e_o[pi[:clen]] + e_o[pj[:clen]] + e_o[pk[:clen]]).contiguous()
+    fin = (t3c.contiguous(), t3d.contiguous(), eo_sum, e_v)
+    got = K.triples_finale(*fin)
+    again = K.triples_finale(*fin)
+    want = K.triples_finale_plain(*fin)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, again)), f"triples_finale (v={v}): two launches differ")
+    plain_ms = cuda_ms(torch, lambda: K.triples_finale_plain(*fin))
+    return dict(
+        got=got, want=want,
+        ms=cuda_ms(torch, lambda: K.triples_finale(*fin)),
+        plain_ms=plain_ms,
+        # the plain version is already one torch expression of the same
+        # function over all panels, so the library call is that same call
+        library_ms=plain_ms,
+        bound=bound_ms(clen * v**3 * 11, 2 * clen * v**3 * 8 + (clen + v + 1) * 8),
+        shape=f"({clen}, v, v, v) panels x2, v={v}{label}",
+        source="afesp_tpu_torch/csrc/triples_finale.cu",
+        replaces="afesp_tpu/ops/triples_pallas.py:1042 (triples_finale, body _finale_kernel :46)",
+    )
 
 
 def kernel_checks(torch, dev, o: int, v: int) -> dict:
@@ -258,33 +323,10 @@ def kernel_checks(torch, dev, o: int, v: int) -> dict:
         library_ms=cuda_ms(torch, library),
         split_ms=k1_split(K, args, (ii, jj, kk)),
         bound=k1_bound(o, v, n, args), shape=f"o={o}, v={v}, {n} strict triples",
-        source="afesp_tpu_torch/csrc/triples_fused.cu",
-        replaces="afesp_tpu/ops/triples_pallas.py:926 (triples_fused, body _fused_kernel :308)",
+        source=K1_SOURCE, replaces=K1_REPLACES,
     )
 
-    # K2 at the "pallas" tier's chunk shape: (clen, v, v, v) panels
-    t3c, t3d = T._chunk_panels(pi[:clen], pj[:clen], pk[:clen], *args[:5])
-    e_o, e_v = args[5], args[6]
-    eo_sum = (e_o[pi[:clen]] + e_o[pj[:clen]] + e_o[pk[:clen]]).contiguous()
-    fin = (t3c.contiguous(), t3d.contiguous(), eo_sum, e_v)
-    got = K.triples_finale(*fin)
-    again = K.triples_finale(*fin)
-    want = K.triples_finale_plain(*fin)
-    torch.cuda.synchronize()
-    check(bool(torch.equal(got, again)), "triples_finale: two launches differ")
-    plain_ms = cuda_ms(torch, lambda: K.triples_finale_plain(*fin))
-    rows["triples_finale"] = dict(
-        got=got, want=want,
-        ms=cuda_ms(torch, lambda: K.triples_finale(*fin)),
-        plain_ms=plain_ms,
-        # the plain version is already one torch expression of the same
-        # function over all panels, so the library call is that same call
-        library_ms=plain_ms,
-        bound=bound_ms(clen * v**3 * 11, 2 * clen * v**3 * 8 + (clen + v + 1) * 8),
-        shape=f"({clen}, v, v, v) panels x2, v={v}",
-        source="afesp_tpu_torch/csrc/triples_finale.cu",
-        replaces="afesp_tpu/ops/triples_pallas.py:1042 (triples_finale, body _finale_kernel :46)",
-    )
+    rows["triples_finale"] = k2_row(torch, dev, args, o, v)
     for name, r in rows.items():
         g, w = float(r["got"]), float(r["want"])
         r["max_abs_err"] = abs(g - w)
@@ -543,7 +585,7 @@ def read_in_walls(torch) -> None:
         shutil.rmtree(wd, ignore_errors=True)
 
 
-def dimer_phases(torch, dev, kernels: dict) -> tuple[dict, list]:
+def dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, list]:
     """The 116-bf water dimer, CRCCSD(T)_spatial, end to end on the card:
     its integrals by the port's engine (ERIs packed into eri.npy), held
     against the JAX sample and the committed s/t/v.dat; run_calculation
@@ -552,7 +594,8 @@ def dimer_phases(torch, dev, kernels: dict) -> tuple[dict, list]:
     counts) and cross-checked against oracle.json; K3 once and no other
     kernel on that path; then K3, K4 and K5 on the path's own amplitudes,
     held against their plain versions and timed, and the "tiled" (K4) and
-    "pallas" (K5) tiers against the K3 path within DIMER_TIER_TOL.
+    "pallas" (K5) tiers against the K3 path within DIMER_TIER_TOL.  The
+    dimer's inputs are left in `wd` for the spin-orbital dimer.
     Returns the kernels' launches on the path and its tiers, and the
     kernel rows at the path's amplitudes."""
     import io
@@ -568,18 +611,303 @@ def dimer_phases(torch, dev, kernels: dict) -> tuple[dict, list]:
 
     want = json.loads(DIMER_EXPECTED.read_text())
     oracle = json.loads((DIMER / "oracle.json").read_text())
-    wd = Path(tempfile.mkdtemp(prefix="afesp_chip_dimer_"))
+    info = {}
+    with phase("dimer_integrals", info):
+        _, charges, coords = dat.read_geometry(DIMER / "geom.dat")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        basis = write_dat_files(wd, charges, coords, DIMER_BASIS, write_eri=False,
+                                device=dev)
+        wall_1e_files = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        E.overlap(basis, dev), E.kinetic(basis, dev), E.nuclear(basis, charges, coords, dev)
+        torch.cuda.synchronize()
+        wall_1e = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        packed = E.eri_packed(basis, dev)
+        torch.cuda.synchronize()
+        wall_eri = time.perf_counter() - t0
+        np.save(wd / "eri.npy", packed.cpu().numpy())
+        sampled = eri_sample_error(torch, packed, want["eri_sample"])
+        del packed
+        rels = {f: dat_agree(DIMER / f, wd / f) for f in ("s.dat", "t.dat", "v.dat")}
+        for f, rel in rels.items():
+            check(rel <= DAT_RTOL, f"dimer {f}: off the committed file by {rel:.3e}")
+        check((wd / "geom.dat").read_bytes() == (DIMER / "geom.dat").read_bytes(),
+              "the generated geom.dat differs from the committed one")
+        shutil.copy(DIMER / "els.in", wd / "els.in")
+        info.update(nbasis=basis.nbf, wall_1e_s=f"{wall_1e:.3f}",
+                    wall_1e_with_files_s=f"{wall_1e_files:.3f}",
+                    wall_eri_s=f"{wall_eri:.3f}", vs_jax_sample=json.dumps(sampled),
+                    dat_rel_err=json.dumps({k: f"{v:.3e}" for k, v in rels.items()}))
+
+    info = {}
+    with phase("dimer_path", info):
+        for fn in kernels.values():
+            fn.launches = 0
+        fastparse.ROUTES.clear()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        res = run_calculation(wd, Reporter(stream=buf))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        routes = scanner_routes_check(fastparse, "dimer path", 3)
+        text = buf.getvalue()
+        tr = res.triples
+        e0 = res.e_hf + res.e_nuc
+        got = {"e_hf_total": e0, "e_mp2_corr": res.e_mp2, "e_ccsd_corr": res.e_ccsd,
+               "t1_diagnostic": res.t1_diagnostic}
+        got.update({k: getattr(tr, k) for k in want["triples"]})
+        ref = {k: want[k] for k in ("e_hf_total", "e_mp2_corr", "e_ccsd_corr",
+                                    "t1_diagnostic")} | want["triples"]
+        errs = {k: abs(got[k] - ref[k]) for k in ref}
+        for label, val in printed_values(text, want["breakdown"]).items():
+            errs[label] = abs(val - want["breakdown_values"][label])
+        check(len(errs) == len(got) + len(want["breakdown_values"]),
+              "the dimer breakdown block lacks a line of the reference's")
+        for key, err in errs.items():
+            check(err <= ENERGY_TOL, f"dimer {key}: off the JAX value by {err:.3e}")
+        check(res.hf.iterations == want["scf_iterations"],
+              f"dimer SCF iterations {res.hf.iterations} vs JAX {want['scf_iterations']}")
+        check(res.cc.iterations == want["cc_iterations"],
+              f"dimer CC iterations {res.cc.iterations} vs JAX {want['cc_iterations']}")
+        oracle_err = {"e_hf_total": abs(e0 - oracle["e_hf_total"]),
+                      "e_mp2_corr": abs(res.e_mp2 - oracle["e_mp2_corr"])}
+        for key, err in oracle_err.items():
+            check(err <= ENERGY_TOL, f"dimer {key}: off oracle.json by {err:.3e}")
+        check(tr.precision_used == "fused", f"dimer triples tier {tr.precision_used}")
+        check(launches["triples_fused_spatial"] == 1,
+              f"K3 launched {launches['triples_fused_spatial']} times on the dimer path")
+        others = {n: c for n, c in launches.items() if n != "triples_fused_spatial" and c}
+        check(not others, f"other kernels launched on the dimer path: {others}")
+        walls = path_walls(text, "restricted CCSD:", "restricted completely renormalised",
+                           res.cc.iterations)
+        info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
+                    max_abs_err=f"{max(errs.values()):.3e}",
+                    scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
+                    oracle_scf_iterations=oracle["scf_iterations"],
+                    oracle_err=json.dumps({k: f"{v:.3e}" for k, v in oracle_err.items()}),
+                    walls_s=json.dumps(walls),
+                    routes=json.dumps(routes))
+    for line in text.splitlines():
+        if line.lstrip().startswith(("Time taken for", "CCSD arithmetic")):
+            print(f"  {line.strip()}", flush=True)
+
+    # K3, K4 and K5 on the path's own amplitudes, held and timed
+    info = {}
+    with phase("dimer_kernels", info):
+        cfg, cc, nocc = res.cfg, res.cc, res.sys.nocc
+        lv = torch.as_tensor(res.hf.levels, dtype=torch.float64, device=dev)
+        Iv, Jo = TS.cr_intermediates(cc.t1, cc.t2, cc.t1_prev, cc.t2_prev, cc.slices, nocc)
+        v = cc.slices
+        args = (cc.t1, cc.t2, v.v_vvov, v.v_oovo, v.v_oovv, lv[:nocc],
+                lv[nocc : nocc + res.sys.nvirt], Iv, Jo)
+        flags = dict(doing_T=cfg.ccsd_t_paren, doing_R=cfg.ccsd_t_renorm,
+                     doing_CR=cfg.ccsd_t_comp_renorm)
+        rows = spatial_kernel_checks(torch, dev, o=nocc, v=res.sys.nvirt, args=args,
+                                     flags=flags, label=", dimer path's amplitudes")
+        info.update({n: f"rel={r['max_rel_err']:.3e},ms={r['ms']:.4f}"
+                     for n, r in rows.items()})
+
+    tier_launches = {"triples_fused_spatial": launches["triples_fused_spatial"]}
+    for tier, kname in (("tiled", "triples_tiled_spatial"),
+                        ("pallas", "triples_finale_spatial")):
+        info = {}
+        with phase(f"dimer_{tier}_tier", info):
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            ttr = TS.do_ccsd_t_spatial(res.sys, res.cc, res.cfg, res.hf.levels,
+                                       Reporter(stream=io.StringIO()), precision=tier)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tier_launches[kname] = kernels[kname].launches
+            check(tier_launches[kname] > 0, f"{kname} not launched on the dimer {tier} tier")
+            check(ttr.precision_used == tier, f"dimer {tier} tier ran {ttr.precision_used}")
+            err = max(abs(getattr(ttr, k) - getattr(tr, k)) for k in want["triples"])
+            check(err <= DIMER_TIER_TOL, f"dimer {tier} tier off the K3 path by {err:.3e}")
+            info.update(wall_s=f"{wall:.3f}", max_abs_vs_fused=f"{err:.3e}",
+                        launches=json.dumps({kname: tier_launches[kname]}))
+    for name, r in rows.items():
+        r["launches"] = tier_launches[name]
+    return tier_launches, list(rows.items())
+
+
+def path_walls(text: str, cc_label: str, triples_label: str, cc_iterations: int) -> dict:
+    """The report's stage walls of a path, and CCSD's per iteration."""
+    walls = {"read_in": stage_wall(text, "system initialisation"),
+             "rhf": stage_wall(text, "restricted Hartree-Fock"),
+             "mp2": stage_wall(text, "restricted MP2"),
+             "ccsd": stage_wall(text, cc_label),
+             "triples": stage_wall(text, triples_label)}
+    walls["ccsd_per_iteration"] = walls["ccsd"] / cc_iterations
+    return {k: round(v, 4) for k, v in walls.items()}
+
+
+def spinorb_dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, list]:
+    """The 116-bf water dimer as CCSD(T)_spinorb (20 occupied and 212
+    virtual spin orbitals) through run_calculation on the card, on the
+    dimer's inputs in `wd` (written by dimer_phases) and the committed
+    els.in with that calc_type at ccsd_precision "f64".  The vvvv slice
+    must be held as its spin blocks by the 4e9-byte rule; every
+    breakdown value within ENERGY_TOL of the JAX package's CPU run
+    (expected_jax_cpu_ccsd_t_spinorb.json), E(T) within ENERGY_TOL of
+    JAX's f64 tier there, equal SCF and CC iteration counts; K1 once
+    and no other kernel.  CCSD corr and E(T) against the restricted
+    dimer reference are printed, not gated.  Then K1 on the path's
+    amplitudes, held and timed, and the "pallas" tier (panels + K2) on
+    the same amplitudes, within TRIPLES_TOL of K1's E(T), with K2's row
+    on its first chunk.  Returns K1's and K2's launches and their rows."""
+    import io
+
+    from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.io import fastparse
+    from afesp_tpu_torch.io.report import Reporter
+    from afesp_tpu_torch.methods import ccsd_spinorb as CS
+    from afesp_tpu_torch.methods.triples_spinorb import do_ccsd_t_spinorb
+    from afesp_tpu_torch.ops.spin import spinorb_levels
+
+    want = json.loads(SPINORB_DIMER_EXPECTED.read_text())
+    spatial = json.loads(DIMER_EXPECTED.read_text())
+    els = (DIMER / "els.in").read_text()
+    for old, new in (('calc_type="CRCCSD(T)_spatial"', 'calc_type="CCSD(T)_spinorb"'),
+                     ('ccsd_precision = "hybrid"', 'ccsd_precision = "f64"')):
+        check(old in els, f"the dimer's els.in has no line {old!r}")
+        els = els.replace(old, new)
+    check(els == want["els_in"], "the staged els.in differs from the spin-orbital reference's")
+    (wd / "els.in").write_text(els)
+
+    info = {}
+    with phase("spinorb_dimer_path", info):
+        for fn in kernels.values():
+            fn.launches = 0
+        fastparse.ROUTES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        res = run_calculation(wd, Reporter(stream=buf))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        routes = scanner_routes_check(fastparse, "spin-orbital dimer path", 3)
+        text = buf.getvalue()
+        sl = res.cc.slices
+        check(CS._BLOCK_VVVV_BYTES == 4e9, f"_BLOCK_VVVV_BYTES is {CS._BLOCK_VVVV_BYTES!r}")
+        check(res.sys.nvirt**4 * 8 > CS._BLOCK_VVVV_BYTES,
+              f"nvirt {res.sys.nvirt}: the dense vvvv is within the byte rule")
+        check(sl.vvvv is None and sl.vvvv_blocks is not None,
+              "the spin-orbital dimer held its vvvv dense")
+        check(launches["triples_fused"] == 1,
+              f"K1 launched {launches['triples_fused']} times on the spin-orbital dimer path")
+        others = {n: c for n, c in launches.items() if n != "triples_fused" and c}
+        check(not others, f"other kernels launched on the spin-orbital dimer path: {others}")
+        e_t = res.e_ccsd_t - res.e_ccsd
+        errs = {label: abs(val - want["breakdown_values"][label])
+                for label, val in printed_values(text, want["breakdown"]).items()}
+        check(len(errs) == len(want["breakdown_values"]),
+              "the spin-orbital dimer breakdown lacks a line of the reference's")
+        errs["E(T) vs JAX f64 tier"] = abs(e_t - want["spinorb_triples"]["e_t_f64"])
+        for key, err in errs.items():
+            check(err <= ENERGY_TOL, f"spin-orbital dimer {key}: off the JAX value by {err:.3e}")
+        check(res.hf.iterations == want["scf_iterations"],
+              f"spin-orbital dimer SCF iterations {res.hf.iterations} vs JAX "
+              f"{want['scf_iterations']}")
+        check(res.cc.iterations == want["cc_iterations"],
+              f"spin-orbital dimer CC iterations {res.cc.iterations} vs JAX "
+              f"{want['cc_iterations']}")
+        cross = {"ccsd_corr": res.e_ccsd - spatial["e_ccsd_corr"],
+                 "e_t": e_t - (spatial["triples"]["e_ccsd_tt"] - spatial["e_ccsd_corr"])}
+        info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
+                    max_abs_err=f"{max(errs.values()):.3e}", e_t=repr(e_t),
+                    scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
+                    walls_s=json.dumps(path_walls(text, "unrestricted CCSD:",
+                                                  "unrestricted CCSD(T)", res.cc.iterations)),
+                    vvvv_blocks_gb=f"{sum(b.numel() for b in sl.vvvv_blocks) * 8 / 1e9:.3f}",
+                    peak_memory_gb=f"{peak / 1e9:.3f}",
+                    held_before_gb=f"{held_before / 1e9:.3f}",
+                    vs_spatial_dimer_not_gated=json.dumps({k: f"{v:.3e}" for k, v in cross.items()}),
+                    routes=json.dumps(routes))
+    for line in text.splitlines():
+        if line.lstrip().startswith("Time taken for"):
+            print(f"  {line.strip()}", flush=True)
+
+    nocc = res.sys.nocc
+    lv = spinorb_levels(torch.as_tensor(res.hf.levels, dtype=torch.float64, device=dev),
+                        nocc // 2)
+    args = (res.cc.t1, res.cc.t2, sl.vovv, sl.ovoo, sl.oovv, lv[:nocc], lv[nocc:])
+    info = {}
+    with phase("spinorb_dimer_kernels", info):
+        k1 = k1_dimer_check(torch, dev, o=nocc, v=res.sys.nvirt, args=args,
+                            label=", spin-orbital dimer path's amplitudes")
+        info.update(triples_fused=json.dumps(k1))
+    info = {}
+    with phase("spinorb_dimer_pallas_tier", info):
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        e_pallas = do_ccsd_t_spinorb(res.sys, res.cc, res.cfg, res.hf.levels,
+                                     Reporter(stream=io.StringIO()), precision="pallas")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pallas_launches = {n: fn.launches for n, fn in kernels.items()}
+        check(pallas_launches["triples_finale"] > 0,
+              "triples_finale not launched on the spin-orbital dimer's pallas tier")
+        diff = (e_pallas - res.e_ccsd) - e_t
+        check(abs(diff) <= TRIPLES_TOL, f"spin-orbital dimer E(T) pallas off K1's by {diff:.3e}")
+        k2 = k2_row(torch, dev, args, nocc, res.sys.nvirt,
+                    ", spin-orbital dimer path's amplitudes")
+        g, w = float(k2["got"]), float(k2["want"])
+        k2.update(max_abs_err=abs(g - w), max_rel_err=abs(g - w) / max(abs(w), 1e-300))
+        check(k2["max_rel_err"] <= KERNEL_RTOL,
+              f"triples_finale (dimer): kernel {g!r} vs plain {w!r}")
+        info.update(wall_s=f"{wall:.3f}", e_t_pallas_minus_k1=f"{diff:.3e}",
+                    launches=json.dumps(pallas_launches),
+                    triples_finale=json.dumps({k: v for k, v in k2.items()
+                                               if k not in ("got", "want")}))
+    k1.update(source=K1_SOURCE, replaces=K1_REPLACES, launches=launches["triples_fused"])
+    k2["launches"] = pallas_launches["triples_finale"]
+    return ({"triples_fused": k1["launches"], "triples_finale": k2["launches"]},
+            [("triples_fused", k1), ("triples_finale", k2)])
+
+
+def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
+    """The 174-bf water trimer, CRCCSD(T)_spatial, end to end on the
+    card: the engine computes its one-electron integrals (held against
+    the committed s/t/v.dat) and writes its ERIs, packed, as eri.npy in
+    a temporary directory beside copies of the committed s/t/v.dat,
+    geom.dat and els.in ("hybrid": K4 at nvirt 159); run_calculation
+    there.  The gate is the JAX package's f64 CPU run
+    (expected_jax_cpu_crccsd_t_spatial.json: the ERIs within ERI_TOL of
+    its sample, every breakdown value within ENERGY_TOL, equal SCF and CC
+    iteration counts), with HF and MP2 cross-checked against oracle.json
+    as for the dimer.  K4 once and no other kernel; then K4 on the path's
+    own amplitudes, held and timed.  Returns K4's launches and its row."""
+    import io
+
+    import numpy as np
+
+    from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.integrals import engine as E
+    from afesp_tpu_torch.io import dat, fastparse
+    from afesp_tpu_torch.io.report import Reporter
+    from afesp_tpu_torch.methods import triples_spatial as TS
+
+    want = json.loads(TRIMER_EXPECTED.read_text())
+    oracle = json.loads((TRIMER / "oracle.json").read_text())
+    wd = Path(tempfile.mkdtemp(prefix="afesp_chip_trimer_"))
     try:
         info = {}
-        with phase("dimer_integrals", info):
-            _, charges, coords = dat.read_geometry(DIMER / "geom.dat")
+        with phase("trimer_integrals", info):
+            _, charges, coords = dat.read_geometry(TRIMER / "geom.dat")
+            basis = E.build_basis(charges, coords, DIMER_BASIS)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            basis = write_dat_files(wd, charges, coords, DIMER_BASIS, write_eri=False,
-                                    device=dev)
-            wall_1e_files = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            E.overlap(basis, dev), E.kinetic(basis, dev), E.nuclear(basis, charges, coords, dev)
+            mats = {"s.dat": E.overlap(basis, dev), "t.dat": E.kinetic(basis, dev),
+                    "v.dat": E.nuclear(basis, charges, coords, dev)}
             torch.cuda.synchronize()
             wall_1e = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -589,31 +917,41 @@ def dimer_phases(torch, dev, kernels: dict) -> tuple[dict, list]:
             np.save(wd / "eri.npy", packed.cpu().numpy())
             sampled = eri_sample_error(torch, packed, want["eri_sample"])
             del packed
-            rels = {f: dat_agree(DIMER / f, wd / f) for f in ("s.dat", "t.dat", "v.dat")}
-            for f, rel in rels.items():
-                check(rel <= DAT_RTOL, f"dimer {f}: off the committed file by {rel:.3e}")
-            check((wd / "geom.dat").read_bytes() == (DIMER / "geom.dat").read_bytes(),
-                  "the generated geom.dat differs from the committed one")
-            shutil.copy(DIMER / "els.in", wd / "els.in")
+            rels = {}
+            for name, M in mats.items():
+                ref = torch.as_tensor(dat.read_dat_matrix(TRIMER / name, basis.nbf))
+                rels[name] = float(((M.cpu() - ref).abs() / ref.abs().clamp(min=1.0)).max())
+                check(rels[name] <= DAT_RTOL,
+                      f"trimer {name}: engine off the committed file by {rels[name]:.3e}")
+            for f in ("s.dat", "t.dat", "v.dat", "geom.dat", "els.in"):
+                shutil.copy(TRIMER / f, wd / f)
             info.update(nbasis=basis.nbf, wall_1e_s=f"{wall_1e:.3f}",
-                        wall_1e_with_files_s=f"{wall_1e_files:.3f}",
                         wall_eri_s=f"{wall_eri:.3f}", vs_jax_sample=json.dumps(sampled),
                         dat_rel_err=json.dumps({k: f"{v:.3e}" for k, v in rels.items()}))
 
         info = {}
-        with phase("dimer_path", info):
+        with phase("trimer_path", info):
             for fn in kernels.values():
                 fn.launches = 0
             fastparse.ROUTES.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held_before = torch.cuda.memory_allocated()
             buf = io.StringIO()
             t0 = time.perf_counter()
             res = run_calculation(wd, Reporter(stream=buf))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
             launches = {n: fn.launches for n, fn in kernels.items()}
-            routes = scanner_routes_check(fastparse, "dimer path", 3)
+            routes = scanner_routes_check(fastparse, "trimer path", 3)
             text = buf.getvalue()
             tr = res.triples
+            check(tr.precision_used == "tiled", f"trimer triples tier {tr.precision_used}")
+            check(launches["triples_tiled_spatial"] == 1,
+                  f"K4 launched {launches['triples_tiled_spatial']} times on the trimer path")
+            others = {n: c for n, c in launches.items() if n != "triples_tiled_spatial" and c}
+            check(not others, f"other kernels launched on the trimer path: {others}")
             e0 = res.e_hf + res.e_nuc
             got = {"e_hf_total": e0, "e_mp2_corr": res.e_mp2, "e_ccsd_corr": res.e_ccsd,
                    "t1_diagnostic": res.t1_diagnostic}
@@ -623,43 +961,37 @@ def dimer_phases(torch, dev, kernels: dict) -> tuple[dict, list]:
             errs = {k: abs(got[k] - ref[k]) for k in ref}
             for label, val in printed_values(text, want["breakdown"]).items():
                 errs[label] = abs(val - want["breakdown_values"][label])
-            check(len(errs) == len(got) + len(want["breakdown_values"]),
-                  "the dimer breakdown block lacks a line of the reference's")
+            check(len(errs) == len(ref) + len(want["breakdown_values"]),
+                  "the trimer breakdown lacks a line of the reference's")
             for key, err in errs.items():
-                check(err <= ENERGY_TOL, f"dimer {key}: off the JAX value by {err:.3e}")
+                check(err <= ENERGY_TOL, f"trimer {key}: off the JAX value by {err:.3e}")
             check(res.hf.iterations == want["scf_iterations"],
-                  f"dimer SCF iterations {res.hf.iterations} vs JAX {want['scf_iterations']}")
+                  f"trimer SCF iterations {res.hf.iterations} vs JAX {want['scf_iterations']}")
             check(res.cc.iterations == want["cc_iterations"],
-                  f"dimer CC iterations {res.cc.iterations} vs JAX {want['cc_iterations']}")
+                  f"trimer CC iterations {res.cc.iterations} vs JAX {want['cc_iterations']}")
             oracle_err = {"e_hf_total": abs(e0 - oracle["e_hf_total"]),
                           "e_mp2_corr": abs(res.e_mp2 - oracle["e_mp2_corr"])}
             for key, err in oracle_err.items():
-                check(err <= ENERGY_TOL, f"dimer {key}: off oracle.json by {err:.3e}")
-            check(tr.precision_used == "fused", f"dimer triples tier {tr.precision_used}")
-            check(launches["triples_fused_spatial"] == 1,
-                  f"K3 launched {launches['triples_fused_spatial']} times on the dimer path")
-            others = {n: c for n, c in launches.items() if n != "triples_fused_spatial" and c}
-            check(not others, f"other kernels launched on the dimer path: {others}")
-            walls = {"read_in": stage_wall(text, "system initialisation"),
-                     "rhf": stage_wall(text, "restricted Hartree-Fock"),
-                     "mp2": stage_wall(text, "restricted MP2"),
-                     "ccsd": stage_wall(text, "restricted CCSD:"),
-                     "triples": stage_wall(text, "restricted completely renormalised")}
-            walls["ccsd_per_iteration"] = walls["ccsd"] / res.cc.iterations
+                check(err <= ENERGY_TOL, f"trimer {key}: off oracle.json by {err:.3e}")
             info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
                         max_abs_err=f"{max(errs.values()):.3e}",
                         scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
-                        oracle_scf_iterations=oracle["scf_iterations"],
                         oracle_err=json.dumps({k: f"{v:.3e}" for k, v in oracle_err.items()}),
-                        walls_s=json.dumps({k: round(v, 4) for k, v in walls.items()}),
+                        walls_s=json.dumps(path_walls(
+                            text, "restricted CCSD:", "restricted completely renormalised",
+                            res.cc.iterations)),
+                        peak_memory_gb=f"{peak / 1e9:.3f}",
+                        held_before_gb=f"{held_before / 1e9:.3f}",
                         routes=json.dumps(routes))
-        for line in text.splitlines():
-            if line.lstrip().startswith(("Time taken for", "CCSD arithmetic")):
-                print(f"  {line.strip()}", flush=True)
+        lines = text.splitlines()
+        start = next(i for i, ln in enumerate(lines) if "Final energy breakdown" in ln)
+        for line in [ln for ln in lines if ln.lstrip().startswith(("Time taken for",
+                                                                   "CCSD arithmetic"))] + \
+                lines[start - 1 : start - 1 + len(want["breakdown"])]:
+            print(f"  {line.rstrip()}", flush=True)
 
-        # K3, K4 and K5 on the path's own amplitudes, held and timed
         info = {}
-        with phase("dimer_kernels", info):
+        with phase("trimer_kernels", info):
             cfg, cc, nocc = res.cfg, res.cc, res.sys.nocc
             lv = torch.as_tensor(res.hf.levels, dtype=torch.float64, device=dev)
             Iv, Jo = TS.cr_intermediates(cc.t1, cc.t2, cc.t1_prev, cc.t2_prev, cc.slices, nocc)
@@ -669,34 +1001,13 @@ def dimer_phases(torch, dev, kernels: dict) -> tuple[dict, list]:
             flags = dict(doing_T=cfg.ccsd_t_paren, doing_R=cfg.ccsd_t_renorm,
                          doing_CR=cfg.ccsd_t_comp_renorm)
             rows = spatial_kernel_checks(torch, dev, o=nocc, v=res.sys.nvirt, args=args,
-                                         flags=flags, label=", dimer path's amplitudes")
-            info.update({n: f"rel={r['max_rel_err']:.3e},ms={r['ms']:.4f}"
-                         for n, r in rows.items()})
-
-        tier_launches = {"triples_fused_spatial": launches["triples_fused_spatial"]}
-        for tier, kname in (("tiled", "triples_tiled_spatial"),
-                            ("pallas", "triples_finale_spatial")):
-            info = {}
-            with phase(f"dimer_{tier}_tier", info):
-                for fn in kernels.values():
-                    fn.launches = 0
-                t0 = time.perf_counter()
-                ttr = TS.do_ccsd_t_spatial(res.sys, res.cc, res.cfg, res.hf.levels,
-                                           Reporter(stream=io.StringIO()), precision=tier)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                tier_launches[kname] = kernels[kname].launches
-                check(tier_launches[kname] > 0, f"{kname} not launched on the dimer {tier} tier")
-                check(ttr.precision_used == tier, f"dimer {tier} tier ran {ttr.precision_used}")
-                err = max(abs(getattr(ttr, k) - getattr(tr, k)) for k in want["triples"])
-                check(err <= DIMER_TIER_TOL, f"dimer {tier} tier off the K3 path by {err:.3e}")
-                info.update(wall_s=f"{wall:.3f}", max_abs_vs_fused=f"{err:.3e}",
-                            launches=json.dumps({kname: tier_launches[kname]}))
-        for name, r in rows.items():
-            r["launches"] = tier_launches[name]
+                                         flags=flags, label=", trimer path's amplitudes")
+            check(list(rows) == ["triples_tiled_spatial"], f"trimer kernel rows {list(rows)}")
+            info.update({n: json.dumps(r) for n, r in rows.items()})
+        rows["triples_tiled_spatial"]["launches"] = launches["triples_tiled_spatial"]
     finally:
         shutil.rmtree(wd, ignore_errors=True)
-    return tier_launches, list(rows.items())
+    return launches["triples_tiled_spatial"], list(rows.items())
 
 
 def printed_values(text: str, reference_block: list) -> dict:
@@ -1002,8 +1313,17 @@ def main() -> int:
     amplitudes_restart(torch, spatial)
     read_in_walls(torch)
     engine_pvtz(torch, dev)
-    dimer_launches, dimer_rows = dimer_phases(torch, dev, kernels)
-    table += dimer_rows
+    wd = Path(tempfile.mkdtemp(prefix="afesp_chip_dimer_"))
+    try:
+        dimer_launches, dimer_rows = dimer_phases(torch, dev, kernels, wd)
+        table += dimer_rows
+        _, spinorb_rows = spinorb_dimer_phases(torch, dev, kernels, wd)
+        table += spinorb_rows
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _, trimer_rows = trimer_phases(torch, dev, kernels)
+    table += trimer_rows
 
     # the path that runs each kernel: K1 the spin-orbital main path, K2 its
     # "pallas" tier, K3 the restricted path, K4 and K5 its "tiled" and

@@ -67,6 +67,9 @@ def test_spin_slices_bit_equal(stages):
     js = jcc.make_spin_slices(stages["eri_mo"], nocc_spatial=nocc)
     ts = tcc.make_spin_slices(torch.as_tensor(np.array(stages["eri_mo"])), nocc)
     for f in dataclasses.fields(tcc.SpinSlices):
+        if f.name == "vvvv_blocks":  # dense mode at this size, in both packages
+            assert ts.vvvv_blocks is None and js.vvvv_blocks is None
+            continue
         assert np.array_equal(getattr(ts, f.name).numpy(), np.asarray(getattr(js, f.name))), f.name
     # the transformed MO tensor is symmetric to roundoff only
     assert float(tspin.spin_symmetry_error(ts.oooo, ts.oovv, ts.vvvv)) < 1e-10

@@ -1,25 +1,41 @@
-"""Write the JAX reference values of the restricted CRCCSD(T)_spatial run
-of the water dimer, cc-pVTZ (116 basis functions), that `chip_smoke.py`
-checks the port's dimer path against.
+"""Write the JAX reference values that `chip_smoke.py` checks the port's
+large paths against: the water dimer, cc-pVTZ (116 basis functions),
+restricted CRCCSD(T)_spatial (default) or CCSD(T)_spinorb (`--spinorb`),
+and the water trimer, cc-pVTZ (174 basis functions), CRCCSD(T)_spatial
+(`--trimer`).
 
 It runs the JAX package on the CPU:
-  1. builds the dimer's basis from the committed
-     `data/h2o-dimer-cc-pvtz/geom.dat` with "cc-pvtz", as
-     `tools/make_dimer.py` does, and its ERIs with the JAX engine's
-     `eri_tensor` (about 6 minutes on an 8-core CPU);
+  1. builds the molecule's basis from the committed `geom.dat` of its
+     directory (`data/h2o-dimer-cc-pvtz/`, `data/h2o-trimer-cc-pvtz/`)
+     with "cc-pvtz", as `tools/make_dimer.py` does, and its ERIs with the
+     JAX engine's `eri_tensor`;
   2. writes them, packed as `eri.npy` (`pack_eri`, as make_dimer.py
      does), into a temporary directory beside copies of the committed
      `s.dat`, `t.dat`, `v.dat` and `geom.dat`; nothing is written into
      `data/` but the JSON below;
   3. runs the JAX driver (`afesp_tpu.driver.run_calculation`) there with
      the committed `els.in` at `ccsd_precision = "f64"` (the port runs
-     f64; JAX's CPU "hybrid" runs digit GEMMs), and, with `--hybrid`,
-     once more at the committed "hybrid" as a cross-check;
-  4. writes `data/h2o-dimer-cc-pvtz/expected_jax_cpu_crccsd_t_spatial.json`:
-     the `els_in` string, the breakdown lines and every value in them,
-     the SCF and CC iteration counts, and a sample of the ERIs (the
-     packed store's sum and Frobenius norm, and 1000 (packed index,
-     value) pairs drawn with a seeded numpy generator).
+     f64; JAX's CPU "hybrid" runs digit GEMMs), with `--spinorb` also at
+     `calc_type = "CCSD(T)_spinorb"` (JAX holds the dimer's vvvv as spin
+     blocks by its 4e9-byte rule), and, with `--hybrid`, once more at the
+     committed "hybrid" as a cross-check;
+  4. writes `expected_jax_cpu_crccsd_t_spatial.json` (or, with
+     `--spinorb`, `expected_jax_cpu_ccsd_t_spinorb.json`) into that
+     directory: the `els_in` string, the breakdown lines and every value
+     in them, the SCF and CC iteration counts, the stage walls and a
+     sample of the ERIs (the packed store's sum and Frobenius norm, and
+     1000 (packed index, value) pairs drawn with a seeded numpy
+     generator).  The sample is written as soon as the engine ends.  With
+     `--spinorb` the JSON also holds E(T) of JAX's f64 spin-orbital tier
+     on the converged amplitudes (`spinorb_triples`): the driver's own
+     CPU tier is the f32 "hybrid" one.
+
+Walls on an 8-core CPU with 62 GB: the dimer's engine 349 s (258 s in a
+later run), its driver 128 s at f64 and 169 s at "hybrid"; `--spinorb`
+driver 297 s and f64 (T) 598 s (about 17 GB of host memory); `--trimer`
+engine 1537 s and driver 1106 s, 1028 s of it CR-CCSD(T) (about 34 GB).
+`--eri-npy PATH` saves the engine's packed ERIs at PATH, or, where that
+file exists, reads them from it instead of running the engine.
 
 With `--pvtz` it writes instead, in about 40 s, the same ERI sample of
 H2O/cc-pVTZ (`fixture-cc-pvtz` at the committed
@@ -30,6 +46,8 @@ that file was written by an earlier form of the engine, and the two
 differ by up to ~2e-9.
 
     JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py [--hybrid]
+    JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py --spinorb [--eri-npy PATH]
+    JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py --trimer [--eri-npy PATH]
     JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py --pvtz
 """
 
@@ -48,6 +66,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
 DIMER = REPO / "data" / "h2o-dimer-cc-pvtz"
+TRIMER = REPO / "data" / "h2o-trimer-cc-pvtz"
 OUT = DIMER / "expected_jax_cpu_crccsd_t_spatial.json"
 PVTZ = REPO / "data" / "h2o-cc-pvtz-2.00_104.45"
 PVTZ_ERI = REPO / "data" / "h2o-cc-pvtz" / "eri.dat"
@@ -58,12 +77,18 @@ TRIPLES_KEYS = ("e_ccsd_t", "e_ccsd_tt", "e_rccsd_t", "e_rccsd_tt", "e_crccsd_t"
                 "e_crccsd_tt", "D_T", "D_TT")
 
 
-def els_in_at(precision: str) -> str:
-    text = (DIMER / "els.in").read_text()
-    old = 'ccsd_precision = "hybrid"'
-    if old not in text:
-        raise SystemExit(f"{DIMER / 'els.in'} has no line {old!r}")
-    return text.replace(old, f'ccsd_precision = "{precision}"')
+def els_in_at(d: Path, precision: str, spinorb: bool = False) -> str:
+    """The committed `d`/els.in with `ccsd_precision` (and, with
+    `spinorb`, `calc_type = "CCSD(T)_spinorb"`) replaced."""
+    text = (d / "els.in").read_text()
+    for old, new in (('ccsd_precision = "hybrid"', f'ccsd_precision = "{precision}"'),
+                     ('calc_type="CRCCSD(T)_spatial"',
+                      'calc_type="CCSD(T)_spinorb"' if spinorb else None)):
+        if old not in text:
+            raise SystemExit(f"{d / 'els.in'} has no line {old!r}")
+        if new is not None:
+            text = text.replace(old, new)
+    return text
 
 
 def breakdown_of(text: str) -> tuple[list[str], dict]:
@@ -80,7 +105,7 @@ def breakdown_of(text: str) -> tuple[list[str], dict]:
     return block, values
 
 
-def run_driver(wd: Path, els_in: str) -> dict:
+def run_driver(wd: Path, els_in: str, spinorb: bool = False) -> dict:
     """The JAX driver on `wd`, with its HF and CC results caught on the
     way (its RunResult keeps neither)."""
     from afesp_tpu import driver
@@ -89,7 +114,8 @@ def run_driver(wd: Path, els_in: str) -> dict:
 
     (wd / "els.in").write_text(els_in)
     caught = {}
-    do_rhf, do_ccsd = hf_mod.do_rhf, driver.do_ccsd_spatial
+    cc_name = "do_ccsd_spinorb" if spinorb else "do_ccsd_spatial"
+    do_rhf, do_ccsd = hf_mod.do_rhf, getattr(driver, cc_name)
 
     def rhf(*a, **k):
         caught["hf"] = do_rhf(*a, **k)
@@ -99,19 +125,20 @@ def run_driver(wd: Path, els_in: str) -> dict:
         caught["cc"] = do_ccsd(*a, **k)
         return caught["cc"]
 
-    hf_mod.do_rhf, driver.do_ccsd_spatial = rhf, ccsd
+    hf_mod.do_rhf = rhf
+    setattr(driver, cc_name, ccsd)
     try:
         buf = io.StringIO()
         t0 = time.perf_counter()
         res = driver.run_calculation(wd, Reporter(stream=buf))
         wall = time.perf_counter() - t0
     finally:
-        hf_mod.do_rhf, driver.do_ccsd_spatial = do_rhf, do_ccsd
+        hf_mod.do_rhf = do_rhf
+        setattr(driver, cc_name, do_ccsd)
     block, values = breakdown_of(buf.getvalue())
-    tr = res.triples
     stage_walls = [ln.strip() for ln in buf.getvalue().splitlines()
                    if ln.lstrip().startswith("Time taken for")]
-    return {
+    run = {
         "nocc": res.sys.nocc,
         "nvirt": res.sys.nvirt,
         "e_nuc": res.e_nuc,
@@ -122,13 +149,16 @@ def run_driver(wd: Path, els_in: str) -> dict:
         "scf_iterations": caught["hf"].iterations,
         "cc_iterations": caught["cc"].iterations,
         "cc_converged": bool(caught["cc"].converged),
-        "triples_precision_used": tr.precision_used,
-        "triples": {k: float(getattr(tr, k)) for k in TRIPLES_KEYS},
         "breakdown": block,
         "breakdown_values": values,
         "wall_s": wall,
         "stage_walls": stage_walls,
     }
+    if spinorb:
+        return run | {"_cc": caught["cc"], "_res": res, "_hf": caught["hf"]}
+    tr = res.triples
+    return run | {"triples_precision_used": tr.precision_used,
+                  "triples": {k: float(getattr(tr, k)) for k in TRIPLES_KEYS}}
 
 
 def eri_sample(packed: np.ndarray) -> dict:
@@ -176,58 +206,99 @@ def pvtz_sample() -> int:
     return 0
 
 
-def main() -> int:
-    if "--pvtz" in sys.argv[1:]:
-        return pvtz_sample()
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+def engine_eri(d: Path, eri_npy: Path | None) -> tuple[np.ndarray, int, float | None]:
+    """The packed ERIs of `d`/geom.dat in cc-pVTZ from the JAX engine,
+    or those of `eri_npy` when that file exists (written by an earlier
+    run with the same option; no wall then)."""
     from afesp_tpu.integrals.engine import build_basis, eri_tensor
     from afesp_tpu.io.dat import read_geometry
     from afesp_tpu.ops.packed_eri import pack_eri
 
-    _, charges, coords = read_geometry(DIMER / "geom.dat")
+    _, charges, coords = read_geometry(d / "geom.dat")
     basis = build_basis(charges, coords, "cc-pvtz")
+    if eri_npy is not None and eri_npy.exists():
+        packed = np.load(eri_npy)
+        print(f"read {eri_npy}: {packed.size} packed values", flush=True)
+        return packed, basis.nbf, None
     t0 = time.perf_counter()
     packed = pack_eri(eri_tensor(basis))
     eri_s = time.perf_counter() - t0
     print(f"eri_tensor: {basis.nbf} bf, {packed.size} packed values, {eri_s:.1f} s",
           flush=True)
+    if eri_npy is not None:
+        np.save(eri_npy, packed)
+    return packed, basis.nbf, eri_s
+
+
+def spinorb_triples_f64(run: dict) -> dict:
+    """E(T) of JAX's f64 spin-orbital tier on the amplitudes the driver
+    converged (its CPU default is the f32 "hybrid" tier)."""
+    from afesp_tpu.methods.triples_spinorb import do_ccsd_t_spinorb
+
+    cc, res, hf = run.pop("_cc"), run.pop("_res"), run.pop("_hf")
+    t0 = time.perf_counter()
+    e = do_ccsd_t_spinorb(res.sys, cc, res.cfg, hf.levels, precision="f64")
+    return {"block_vvvv": cc.slices.vvvv is None,
+            "e_t_f64": float(e) - float(cc.e_ccsd),
+            "e_t_driver": float(res.e_ccsd_t) - float(cc.e_ccsd),
+            "triples_f64_s": time.perf_counter() - t0}
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    if "--pvtz" in args:
+        return pvtz_sample()
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    d, out_path = DIMER, OUT
+    if "--trimer" in args:
+        d, out_path = TRIMER, TRIMER / "expected_jax_cpu_crccsd_t_spatial.json"
+    spinorb = "--spinorb" in args
+    if spinorb:
+        out_path = DIMER / "expected_jax_cpu_ccsd_t_spinorb.json"
+    eri_npy = Path(args[args.index("--eri-npy") + 1]) if "--eri-npy" in args else None
+    packed, nbf, eri_s = engine_eri(d, eri_npy)
     out = {
-        "source": "tools/make_torch_dimer_fixture.py",
+        "source": "tools/make_torch_dimer_fixture.py " + " ".join(
+            a for a in args if a in ("--trimer", "--spinorb", "--hybrid")),
         "jax_version": jax.__version__,
         "jax_backend": jax.default_backend(),
-        "inputs": {"dir": str(DIMER.relative_to(REPO)),
+        "inputs": {"dir": str(d.relative_to(REPO)),
                    "geometry": "geom.dat of that directory", "basis": "cc-pvtz",
                    "eri": "eri_tensor of the JAX engine, packed (pack_eri) as eri.npy"},
-        "nbasis": basis.nbf,
+        "nbasis": nbf,
         "eri_sample": eri_sample(packed),
+        "walls_s": {"eri_tensor": eri_s},
     }
+    write(out_path, out)
     with tempfile.TemporaryDirectory() as tmp:
         wd = Path(tmp)
         for f in ("s.dat", "t.dat", "v.dat", "geom.dat"):
-            shutil.copy(DIMER / f, wd / f)
+            shutil.copy(d / f, wd / f)
         np.save(wd / "eri.npy", packed)
         del packed
-        els_in = els_in_at("f64")
-        run = run_driver(wd, els_in)
+        els_in = els_in_at(d, "f64", spinorb)
+        run = run_driver(wd, els_in, spinorb)
         print(json.dumps({k: run[k] for k in ("scf_iterations", "cc_iterations",
                                               "wall_s")}), flush=True)
+        if spinorb:
+            run["spinorb_triples"] = spinorb_triples_f64(run)
         out |= {"els_in": els_in} | run
-        out["walls_s"] = {"eri_tensor": eri_s, "driver_f64": out.pop("wall_s")}
-        write(out)
-        if "--hybrid" in sys.argv[1:]:
-            hyb = run_driver(wd, els_in_at("hybrid"))
+        out["walls_s"]["driver_f64"] = out.pop("wall_s")
+        write(out_path, out)
+        if "--hybrid" in args:
+            hyb = run_driver(wd, els_in_at(d, "hybrid", spinorb), spinorb)
             out["hybrid_cross_check"] = {
                 k: hyb[k] for k in ("breakdown_values", "scf_iterations",
                                     "cc_iterations", "wall_s")}
-            write(out)
+            write(out_path, out)
     return 0
 
 
-def write(out: dict) -> None:
-    OUT.write_text(json.dumps(out, indent=1) + "\n")
-    print(f"wrote {OUT.relative_to(REPO)} ({OUT.stat().st_size} bytes)", flush=True)
+def write(path: Path, out: dict) -> None:
+    path.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)", flush=True)
 
 
 if __name__ == "__main__":
