@@ -78,9 +78,10 @@ class Config:
     # the literature equations, which match Psi4 and the reference's own
     # older outputs (e.g. h2o-cc-pvdz/1.80_104.45/ref_out) to <1e-8 Ha.
     ccsd_spinorb_equations: str = "code"
-    # New: CCSD arithmetic.  In the JAX package "hybrid"/"pallas"/"fused"
-    # select its TPU digit-GEMM iteration; this port accepts them and
-    # runs every contraction in f64 (the digit GEMMs are not ported yet).
+    # New: CCSD arithmetic.  "hybrid"/"pallas"/"fused" run the JAX
+    # package's digit-GEMM CCSD iteration (ops/exact_gemm); "pallas" and
+    # "fused" also pick those triples tiers.  "f64" runs every contraction
+    # in f64.
     ccsd_precision: str = "f64"
     # Runtime permutational-symmetry self-check of the antisymmetrised
     # spin-orbital slices (always on in the reference, ccsd.f90:150-173)

@@ -1,22 +1,27 @@
 """Spin-free (spatial-orbital) CCSD — Piecuch et al., CPC 149 (2002) 71-96.
 
 Port of `afesp_tpu/methods/ccsd_spatial.py` (`Slices`, `CCSDResult`,
-`make_slices`, `denominators`, the f64 branches of `_intermediates` and
-`_iteration_core`, `cc_energy_restricted`, `spatial_cc_init` and
-`do_ccsd_spatial` on the dense `eri_mo` path).  The equations are the
-reference's debug twin routines (update_restricted_intermediates_debug
-ccsd.f90:1314-1458, update_amplitudes_restricted_debug 1460-1536,
-update_cc_energy 1734-1810), with the Fortran index orders kept
-(I_vovv_p[c,i,a,b], I_voov[b,j,i,a], ...) so each line can be checked
-term by term against the reference.
+`make_slices`, `denominators`, `_intermediates` and `_iteration_core`
+with their f64 and digit-GEMM ("hybrid") routes, `SpatialHybridConsts`,
+`_DIG_CONST_SPECS`/`_DIG_CONST_SPECS_B`/`_DIG_L`, `_build_digs`,
+`spatial_presplit`, `get_spatial_solver`, `cc_energy_restricted`,
+`spatial_cc_init` and `do_ccsd_spatial` on the dense `eri_mo` path).
+The equations are the reference's debug twin routines
+(update_restricted_intermediates_debug ccsd.f90:1314-1458,
+update_amplitudes_restricted_debug 1460-1536, update_cc_energy
+1734-1810), with the Fortran index orders kept (I_vovv_p[c,i,a,b],
+I_voov[b,j,i,a], ...) so each line can be checked term by term against
+the reference.
 
-Every contraction is an f64 `torch.einsum` on the device.  The JAX
-package's digit and split GEMMs exist because the TPU has no f64; the
-H100 has, so `ccsd_precision` "hybrid"/"pallas"/"fused" run this same
-f64 iteration and the result says so (`precision_used`).  Not ported
-yet, and refused with "not ported yet": the streaming-slices tier (no
-dense MO tensor, v_vvvv as digit limbs), its `_cr_vvvv_term_from_B`, and
-the device mesh.
+`ccsd_precision` "f64" (the default) runs every contraction as an f64
+`torch.einsum`.  "hybrid", "pallas" and "fused" run the JAX package's
+hybrid iteration (its rule, JAX `:618-623`): every contraction with a
+slice-sized operand is an exact digit GEMM (`ops/exact_gemm`), the
+loop-constant slice sides digitized once per solve (`spatial_presplit`,
+through the solver's precompute hook); `precision_used` says which ran.
+Not ported yet, and refused with "not ported yet": the streaming-slices
+tier (no dense MO tensor, v_vvvv as digit limbs), its
+`spatial_presplit_ext` and `_cr_vvvv_term_from_B`, and the device mesh.
 
 DIIS follows ccsd.f90:38-67 through the port's `ops/cc_step`; the state
 keeps the amplitudes that fed the final iteration (`t1_prev`/`t2_prev`),
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -35,7 +41,9 @@ from ..config import Config
 from ..device import F64, default_device
 from ..io import dat
 from ..io.report import Reporter
-from ..ops.cc_step import cc_step, init_cc_state
+from ..ops.cc_step import init_cc_state, make_cc_solver
+from ..ops.exact_gemm import exact_einsum, prechunk_op
+from ..ops.split_gemm import split_einsum
 from .hf import HFResult
 
 es = torch.einsum
@@ -71,6 +79,7 @@ class CCSDResult:
     t1_prev: torch.Tensor | None = None
     t2_prev: torch.Tensor | None = None
     energies: list[float] = dataclasses.field(default_factory=list)  # per iteration
+    # the CCSD arithmetic that ran: "f64", or "hybrid" (the digit GEMMs)
     precision_used: str = "f64"
 
 
@@ -105,34 +114,55 @@ def denominators(levels: torch.Tensor, nocc: int):
     return D_ia, D_ijab
 
 
-def _intermediates(t1, t2, v: Slices) -> dict:
-    """Piecuch Table-1 intermediates (debug twin, ccsd.f90:1334-1454)."""
+def _routes(digs: dict | None):
+    """The contraction routes (ce, cb, xe) of the hybrid iteration: a
+    digit GEMM against the A-side / B-side digitized constant of the
+    spec, and one with both operands digitized in the loop (L=6).
+    Without `digs`, all three are the f64 einsum."""
+    if digs is None:
+        return es, es, es
+    return (
+        lambda spec, A, B: exact_einsum(spec, A, B, A_pre=digs[spec], maxdeg=7),
+        lambda spec, A, B: exact_einsum(spec, A, B, B_pre=digs[spec], maxdeg=7),
+        lambda spec, A, B: exact_einsum(spec, A, B, L=6, maxdeg=7),
+    )
+
+
+def _intermediates(t1, t2, v: Slices, digs: dict | None = None) -> dict:
+    """Piecuch Table-1 intermediates (debug twin, ccsd.f90:1334-1454).
+
+    With `digs` (the prechunk_op dict of the hybrid solve) every
+    contraction with a slice-sized operand runs as a digit GEMM, as in
+    the JAX package: prechunked on the A side (`ce`) or the B side
+    (`cb`) for the constant slices, digitized in the loop (`xe`) where
+    both operands change every iteration."""
+    ce, cb, xe = _routes(digs)
     asym_t2 = 2.0 * t2 - t2.permute(1, 0, 2, 3)
     c_oovv = t2 + es("ia,jb->ijab", t1, t1)
 
     # I_ai = (2 v_oovv[m,i,e,a] - v_oovv[m,i,a,e]) t1[m,e]        (ccsd.f90:1336)
-    I_vo = 2.0 * es("miea,me->ai", v.v_oovv, t1) - es("miae,me->ai", v.v_oovv, t1)
+    I_vo = 2.0 * ce("miea,me->ai", v.v_oovv, t1) - ce("miae,me->ai", v.v_oovv, t1)
 
     # the two t1-dressings of v_vvov, shared by I_vv / I_ovov / I_voov / I_ooov'
     #   x_voov[b,j,i,a]    = v_vvov[b,e,i,a] t1[j,e]   (ccsd.f90:1413/1426)
     #   x_ovov_t1[j,b,i,a] = v_vvov[e,b,i,a] t1[j,e]   (ccsd.f90:1401)
-    x_voov = es("je,beia->bjia", t1, v.v_vvov)
-    x_ovov_t1 = es("je,ebia->jbia", t1, v.v_vvov)
+    x_voov = cb("je,beia->bjia", t1, v.v_vvov)
+    x_ovov_t1 = cb("je,ebia->jbia", t1, v.v_vvov)
 
     # I_ba (ccsd.f90:1352-1353); the two v_vvov GEMVs are diagonal traces
     # of the dressings above
     I_vv = (
         2.0 * es("mbma->ba", x_ovov_t1)
         - es("bmma->ba", x_voov)
-        - 2.0 * es("mneb,mnea->ba", v.v_oovv, c_oovv)
-        + es("mnbe,mnea->ba", v.v_oovv, c_oovv)
+        - 2.0 * ce("mneb,mnea->ba", v.v_oovv, c_oovv)
+        + ce("mnbe,mnea->ba", v.v_oovv, c_oovv)
     )
 
     # I_ji' (ccsd.f90:1359)
     I_oo_p = (
-        2.0 * es("miej,me->ji", v.v_oovo, t1)
-        - es("imej,me->ji", v.v_oovo, t1)
-        + es("mief,mjef->ji", v.v_oovv, asym_t2)
+        2.0 * ce("miej,me->ji", v.v_oovo, t1)
+        - ce("imej,me->ji", v.v_oovo, t1)
+        + ce("mief,mjef->ji", v.v_oovv, asym_t2)
     )
 
     # I_ji = I_ji' + I_ei t1[j,e] (ccsd.f90:1365)
@@ -141,34 +171,34 @@ def _intermediates(t1, t2, v: Slices) -> dict:
     # I_klij (ccsd.f90:1375-1376)
     I_oooo = (
         v.v_oooo
-        + es("ijef,klef->klij", v.v_oovv, c_oovv)
-        + es("ijel,ke->klij", v.v_oovo, t1)
-        + es("jiek,le->klij", v.v_oovo, t1)
+        + ce("ijef,klef->klij", v.v_oovv, c_oovv)
+        + ce("ijel,ke->klij", v.v_oovo, t1)
+        + ce("jiek,le->klij", v.v_oovo, t1)
     )
 
     # I_jbia (ccsd.f90:1400-1401)
     I_ovov = (
         v.v_ovov
-        - 0.5 * es("imeb,jmea->jbia", v.v_oovv, c_oovv)
-        - es("mibj,ma->jbia", v.v_oovo, t1)
+        - 0.5 * ce("imeb,jmea->jbia", v.v_oovv, c_oovv)
+        - ce("mibj,ma->jbia", v.v_oovo, t1)
         + x_ovov_t1
     )
 
     # I_bjia (ccsd.f90:1413-1414; x_voov also ccsd.f90:1426)
     I_voov = (
         v.v_oovv.permute(2, 1, 0, 3)  # v_oovv[i,j,b,a] -> [b,j,i,a]
-        + es("imbe,mjea->bjia", v.v_oovv, t2)
-        - 0.5 * es("imeb,mjea->bjia", v.v_oovv, t2)
-        - 0.5 * es("mieb,mjae->bjia", v.v_oovv, c_oovv)
+        + ce("imbe,mjea->bjia", v.v_oovv, t2)
+        - 0.5 * ce("imeb,mjea->bjia", v.v_oovv, t2)
+        - 0.5 * ce("mieb,mjae->bjia", v.v_oovv, c_oovv)
         + x_voov
-        - es("imbj,ma->bjia", v.v_oovo, t1)
+        - ce("imbj,ma->bjia", v.v_oovo, t1)
     )
 
     # I_jkia' (ccsd.f90:1438)
     I_ooov_p = (
         v.v_oovo.permute(1, 0, 3, 2)  # v_oovo[k,j,a,i] -> [j,k,i,a]
-        + es("efia,jkef->jkia", v.v_vvov, t2)
-        + es("je,ekia->jkia", t1, x_voov)
+        + ce("efia,jkef->jkia", v.v_vvov, t2)
+        + xe("je,ekia->jkia", t1, x_voov)
     )
 
     return dict(
@@ -178,9 +208,100 @@ def _intermediates(t1, t2, v: Slices) -> dict:
     )
 
 
-def _iteration_core(t1, t2, v: Slices, D_ia, D_ijab):
-    """One T1/T2 update, Piecuch Eqs. 43-44 (debug twin ccsd.f90:1487-1530)."""
-    im = _intermediates(t1, t2, v)
+@dataclasses.dataclass
+class SpatialHybridConsts:
+    """Loop-constant operand preparations of the hybrid iteration, built
+    once per solve (the solver's precompute hook): the digitized forms
+    (ops/exact_gemm.prechunk_op) of every constant-slice side of the
+    digit-GEMM contractions, keyed by spec.  (The JAX package's `vvvv_B`,
+    v_vvvv as per-chunk-scaled limbs only, belongs to the streaming tier,
+    which is not ported yet.)"""
+
+    digs: dict  # spec -> prechunk_op output
+
+
+# Contractions of the hybrid iteration whose FIRST operand is a
+# loop-constant ERI slice, evaluated as digit GEMMs against its
+# digitized form (JAX `:263-306`).
+_DIG_CONST_SPECS = (
+    ("mneb,mnea->ba", "v_oovv"),
+    ("mnbe,mnea->ba", "v_oovv"),
+    ("mief,mjef->ji", "v_oovv"),
+    ("ijef,klef->klij", "v_oovv"),
+    ("imeb,jmea->jbia", "v_oovv"),
+    ("imbe,mjea->bjia", "v_oovv"),
+    ("imeb,mjea->bjia", "v_oovv"),
+    ("mieb,mjae->bjia", "v_oovv"),
+    ("efia,jkef->jkia", "v_vvov"),
+    ("efma,mief->ia", "v_vvov"),
+    ("mnei,mnea->ia", "v_oovo"),
+    ("mnei,mnae->ia", "v_oovo"),
+    # the t1-weighted slice GEMVs
+    ("miea,me->ai", "v_oovv"),
+    ("miae,me->ai", "v_oovv"),
+    ("miej,me->ji", "v_oovo"),
+    ("imej,me->ji", "v_oovo"),
+    ("ijel,ke->klij", "v_oovo"),
+    ("jiek,le->klij", "v_oovo"),
+    ("mibj,ma->jbia", "v_oovo"),
+    ("imbj,ma->bjia", "v_oovo"),
+    ("miea,me->ia", "v_oovv"),
+    ("maie,me->ia", "v_ovov"),
+    # the dominant O(o^2 v^4) contraction
+    ("efab,ijef->ijab", "v_vvvv"),
+)
+
+# Contractions whose constant slice is the SECOND operand, digitized on
+# the B side (JAX `:308-314`): the v_vvov t1-dressings and the
+# reassociated t1*I_vovv' pieces.
+_DIG_CONST_SPECS_B = (
+    ("je,beia->bjia", "v_vvov"),
+    ("je,ebia->jbia", "v_vvov"),
+    ("ie,baje->ijab", "v_vvov"),
+    ("ie,maje->imaj", "v_ovov"),
+    ("ie,mjeb->imjb", "v_oovv"),
+)
+
+# Digit depth per prechunked constant (JAX `:317-339`): L=6/maxdeg=7
+# (21 digit-pair GEMMs) by default; the three O(v^3 o) v_vvov
+# matricisations of the B side and "efia,jkef" hold L=5, "efma,mief"
+# L=4 (each feeds t1- or t2-weighted correction terms of scale ~1e-2).
+_DIG_L = {
+    "je,beia->bjia": 5,
+    "je,ebia->jbia": 5,
+    "ie,baje->ijab": 5,
+    "efia,jkef->jkia": 5,
+    "efma,mief->ia": 4,
+}
+
+
+def _build_digs(v: Slices) -> dict:
+    digs = {
+        spec: prechunk_op(spec, "A", getattr(v, name), L=_DIG_L.get(spec, 6))
+        for spec, name in _DIG_CONST_SPECS
+    }
+    digs.update({
+        spec: prechunk_op(spec, "B", getattr(v, name), L=_DIG_L.get(spec, 6))
+        for spec, name in _DIG_CONST_SPECS_B
+    })
+    return digs
+
+
+def spatial_presplit(v: Slices, kc: int = 64) -> SpatialHybridConsts:
+    return SpatialHybridConsts(digs=_build_digs(v))
+
+
+def _iteration_core(t1, t2, v: Slices, D_ia, D_ijab, consts: SpatialHybridConsts | None = None,
+                    *, vvvv_split: bool = False):
+    """One T1/T2 update, Piecuch Eqs. 43-44 (debug twin ccsd.f90:1487-1530).
+
+    vvvv_split (ccsd_precision "hybrid"/"pallas"/"fused") with consts
+    runs every slice contraction as a digit GEMM; without consts the
+    dominant c_oovv * v_vvvv contraction alone takes the split-f32
+    route (split_einsum), as in the JAX package."""
+    digs = consts.digs if vvvv_split and consts is not None else None
+    ce, cb, xe = _routes(digs)
+    im = _intermediates(t1, t2, v, digs)
     asym_t2 = im["asym_t2"]
     c_oovv = im["c_oovv"]
 
@@ -188,39 +309,42 @@ def _iteration_core(t1, t2, v: Slices, D_ia, D_ijab):
     tmp_t1 = (
         es("ea,ie->ia", im["I_vv"], t1)
         - es("im,ma->ia", im["I_oo_p"], t1)
-        + es("em,miea->ia", im["I_vo"], asym_t2)
-        + 2.0 * es("miea,me->ia", v.v_oovv, t1)
-        - es("maie,me->ia", v.v_ovov, t1)
-        - 2.0 * es("mnei,mnea->ia", v.v_oovo, t2)
-        + es("mnei,mnae->ia", v.v_oovo, t2)
-        + es("efma,mief->ia", v.v_vvov, asym_t2)
+        + xe("em,miea->ia", im["I_vo"], asym_t2)
+        + 2.0 * ce("miea,me->ia", v.v_oovv, t1)
+        - ce("maie,me->ia", v.v_ovov, t1)
+        - 2.0 * ce("mnei,mnea->ia", v.v_oovo, t2)
+        + ce("mnei,mnae->ia", v.v_oovo, t2)
+        + ce("efma,mief->ia", v.v_vvov, asym_t2)
     )
 
     # ---------------- T2 (Eq. 44; ccsd.f90:1497-1526) ----------------
-    vvvv_term = 0.5 * es("efab,ijef->ijab", v.v_vvvv, c_oovv)
+    if vvvv_split and consts is None:
+        vvvv_term = 0.5 * split_einsum("efab,ijef->ijab", v.v_vvvv, c_oovv)
+    else:
+        vvvv_term = 0.5 * ce("efab,ijef->ijab", v.v_vvvv, c_oovv)
     # t1 * I_vovv' (Eq. 44 term 5), reassociated through the t1
     # contraction so the (v,o,v,v) intermediate never exists:
     #   sum_e t1[i,e] I_vovv'[e,j,a,b]
     #     = sum_e t1[i,e] v_vvov[b,a,j,e]
     #     - sum_m U[i,m,a,j] t1[m,b],  U = v_ovov[m,a,j,e] t1[i,e]
     #     - sum_m W[i,m,j,b] t1[m,a],  W = v_oovv[m,j,e,b] t1[i,e]
-    U = es("ie,maje->imaj", t1, v.v_ovov)
-    W = es("ie,mjeb->imjb", t1, v.v_oovv)
+    U = cb("ie,maje->imaj", t1, v.v_ovov)
+    W = cb("ie,mjeb->imjb", t1, v.v_oovv)
     t1_Ivovv = (
-        es("ie,baje->ijab", t1, v.v_vvov)
+        cb("ie,baje->ijab", t1, v.v_vvov)
         - es("imaj,mb->ijab", U, t1)
         - es("imjb,ma->ijab", W, t1)
     )
     X = (
-        es("ijae,eb->ijab", t2, im["I_vv"])
-        - es("imab,jm->ijab", t2, im["I_oo"])
+        xe("ijae,eb->ijab", t2, im["I_vv"])
+        - xe("imab,jm->ijab", t2, im["I_oo"])
         + vvvv_term
-        + 0.5 * es("mnab,ijmn->ijab", c_oovv, im["I_oooo"])
+        + 0.5 * xe("mnab,ijmn->ijab", c_oovv, im["I_oooo"])
         + t1_Ivovv
-        - es("ma,ijmb->ijab", t1, im["I_ooov_p"])
-        - es("mjae,iemb->ijab", t2, im["I_ovov"])
-        - es("iema,mjeb->ijab", im["I_ovov"], t2)
-        + es("miea,ejmb->ijab", asym_t2, im["I_voov"])
+        - xe("ma,ijmb->ijab", t1, im["I_ooov_p"])
+        - xe("mjae,iemb->ijab", t2, im["I_ovov"])
+        - xe("iema,mjeb->ijab", im["I_ovov"], t2)
+        + xe("miea,ejmb->ijab", asym_t2, im["I_voov"])
     )
     t2_new = (v.v_oovv + X + X.permute(1, 0, 3, 2)) / D_ijab
     t1_new = tmp_t1 / D_ia
@@ -233,6 +357,17 @@ def cc_energy_restricted(t1, t2, t2_old, v_oovv):
     ecc = torch.sum(asym_v * (t2 + es("ia,jb->ijab", t1, t1)))
     rms2 = torch.sum((t2 - t2_old) ** 2)
     return ecc, rms2
+
+
+ccsd_spatial_solver = make_cc_solver(partial(_iteration_core, vvvv_split=False),
+                                     cc_energy_restricted)
+ccsd_spatial_solver_hybrid = make_cc_solver(partial(_iteration_core, vvvv_split=True),
+                                            cc_energy_restricted, precompute=spatial_presplit)
+
+
+def get_spatial_solver(vvvv_split: bool = False):
+    """The whole-solve loop for a precision mode (JAX `:496`)."""
+    return ccsd_spatial_solver_hybrid if vvvv_split else ccsd_spatial_solver
 
 
 def spatial_cc_init(eri_mo: torch.Tensor, levels: torch.Tensor, nocc: int):
@@ -284,39 +419,24 @@ def do_ccsd_spatial(
         t2 = torch.as_tensor(t2_np, dtype=F64, device=dev)
         e0, r0 = cc_energy_restricted(t1, t2, torch.zeros_like(t2), v.v_oovv)
     rep.write(" Allocating stored intermediate tensors...")
-    if cfg.ccsd_precision != "f64":
-        rep.write(
-            f' CCSD arithmetic: f64 (ccsd_precision="{cfg.ccsd_precision}"'
-            " runs in f64 on this device)"
-        )
+
+    # "pallas" and "fused" change only the triples tier; the CC solve
+    # runs the hybrid digit-GEMM iteration for all three (JAX `:618-623`)
+    vvvv_split = cfg.ccsd_precision in ("hybrid", "pallas", "fused")
+    solver = get_spatial_solver(vvvv_split=vvvv_split)
 
     rep.write(f" Time taken: {time.perf_counter() - t_stage:8.6f} s")
     rep.write("")
     rep.write(" Initialisation done, now entering iterative CC solver...")
     rep.cc_table_header()
 
-    iteration = lambda a, b: _iteration_core(a, b, v, D_ia, D_ijab)
-    energy_fn = lambda a, b, old: cc_energy_restricted(a, b, old, v.v_oovv)
-
     energy, r0_h = torch.stack([e0, r0]).tolist()
     rep.cc_row("MP1", energy, energy, r0_h)
     state = init_cc_state(t1, t2, cfg.ccsd_diis_n_errmat)
-    energies = []
-    converged = False
-    e_old = energy
-    t_it = time.perf_counter()
-    for k in range(1, cfg.ccsd_maxiter + 1):
-        state, er = cc_step(state, iteration, energy_fn, cfg.ccsd_diis_n_errmat)
-        e, rms2 = er.tolist()
-        now = time.perf_counter()
-        rep.cc_row(k, e, e - e_old, rms2, now - t_it)
-        t_it = now
-        energies.append(e)
-        done = rms2**0.5 < cfg.ccsd_t_tol and abs(e - e_old) < cfg.ccsd_e_tol
-        e_old = e
-        if done:
-            converged = True
-            break
+    state, energies, converged = solver(
+        state, v, D_ia, D_ijab, v.v_oovv, energy, cfg.ccsd_e_tol, cfg.ccsd_t_tol,
+        nerr=cfg.ccsd_diis_n_errmat, maxiter=cfg.ccsd_maxiter, on_iteration=rep.cc_row,
+    )
     if energies:
         energy = energies[-1]
     if converged:
@@ -357,4 +477,5 @@ def do_ccsd_spatial(
         t1_prev=state.t1_in,
         t2_prev=state.t2_in,
         energies=energies,
+        precision_used="hybrid" if vvvv_split else "f64",
     )

@@ -2,11 +2,15 @@
 
 Port of `afesp_tpu/ops/cc_step.py:24-302`: the DIIS ring buffers, the
 incrementally maintained Gram matrix, the fixed-size bordered solve
-(`gauss_solve`, with its singular-pivot guard) and the extrapolation.
-The JAX package compiles the whole solve into one `lax.while_loop`; the
-port runs it as a Python loop on the device with ONE readback per
-iteration (the energy and the squared T2 change, read together), which
-is what the host needs for the convergence test and the report.
+(`gauss_solve`, with its singular-pivot guard), the extrapolation, and
+`make_cc_solver` with its `precompute` hook (`:199-237`): loop-constant
+operands (the hybrid iterations' digitized ERI slices) are built once
+per solve and handed to every iteration.  The JAX package compiles the
+whole solve into one `lax.while_loop` (and pins the consts with an
+optimization barrier, `_pin`, which eager torch needs no counterpart
+of); the port runs it as a Python loop on the device with ONE readback
+per iteration (the energy and the squared T2 change, read together),
+which is what the host needs for the convergence test and the report.
 
 The DIIS system is solved at fixed size (n_errmat+1) with inactive slots
 masked to identity rows, algebraically identical to the reference's
@@ -18,6 +22,7 @@ the state carries the last un-extrapolated amplitudes (`t1_raw`,
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import torch
@@ -130,3 +135,46 @@ def cc_step(
         diis_T=T, diis_E=E, gram=gram, slot=slot, n_active=n,
     )
     return new_state, torch.stack([e, rms2])
+
+
+def make_cc_solver(iteration_fn: Callable, energy_fn: Callable,
+                   precompute: Callable | None = None) -> Callable:
+    """The DIIS-accelerated CC fixed-point loop (`make_cc_solver`,
+    JAX `:199-237`).
+
+    iteration_fn(t1, t2, v, D_ia, D_ijab, consts) -> (t1_new, t2_new)
+    energy_fn(t1, t2, t2_old, oovv)              -> (energy, rms2)
+    precompute(v) -> consts: evaluated once per solve, before the loop;
+    consts is None without it.
+
+    solve(state0, v, D_ia, D_ijab, oovv, e0, e_tol, t_tol, *, nerr,
+          maxiter, on_iteration=None) -> (state, energies, converged)
+    converges when sqrt(rms2) < t_tol and |e - e_old| < e_tol after an
+    iteration (e_old starts at the MP1 energy e0, a float).
+    on_iteration(k, e, e - e_old, rms2, seconds) is called after each
+    iteration (the report's table row); the first one's seconds include
+    the precompute."""
+
+    def solve(state, v, D_ia, D_ijab, oovv, e0: float, e_tol: float, t_tol: float, *,
+              nerr: int, maxiter: int, on_iteration: Callable | None = None):
+        t_it = time.perf_counter()
+        consts = precompute(v) if precompute is not None else None
+        iteration = lambda t1, t2: iteration_fn(t1, t2, v, D_ia, D_ijab, consts)
+        energy = lambda t1, t2, t2_old: energy_fn(t1, t2, t2_old, oovv)
+        energies: list[float] = []
+        e_old = e0
+        for k in range(1, maxiter + 1):
+            state, er = cc_step(state, iteration, energy, nerr)
+            e, rms2 = er.tolist()
+            now = time.perf_counter()
+            if on_iteration is not None:
+                on_iteration(k, e, e - e_old, rms2, now - t_it)
+            t_it = now
+            energies.append(e)
+            done = rms2**0.5 < t_tol and abs(e - e_old) < e_tol
+            e_old = e
+            if done:
+                return state, energies, True
+        return state, energies, False
+
+    return solve

@@ -12,8 +12,10 @@ restricted CRCCSD(T)_spatial and CCSD(T)_spinorb (20 occupied and 212
 virtual spin orbitals, the vvvv slice held as its spin blocks), and on
 the water trimer/cc-pVTZ (174 basis functions, 15 occupied and 159
 virtual spatial orbitals) restricted CRCCSD(T)_spatial, both from
-integrals the port's engine builds on the card.  Each phase prints one
-line with its wall time:
+integrals the port's engine builds on the card; each of these paths at
+ccsd_precision "f64" and at "hybrid" (the JAX package's digit-GEMM
+CCSD, ops/exact_gemm), the committed inputs as written.  Each phase
+prints one line with its wall time:
 
   1. the device: torch's name and count, and nvidia-smi's name and
      power limit;
@@ -34,19 +36,24 @@ line with its wall time:
      between their numerator GEMMs (and each of the three groups), their
      reduction and their operand and host work; then K1 alone at the
      spin-orbital dimer's shape (o=20, v=212, 1140 strict triples), held
-     and timed the same way;
+     and timed the same way; then the digit GEMM (`digit_gemm*`):
+     bit for bit against its CPU run at the pVTZ paths' shapes on every
+     flat-scale route, and timed at the dimer's vvvv shapes against
+     f64 torch.matmul, beside its int8 bound;
   4. the spin-orbital path, `run_calculation` on a staged copy of
      data/h2o-cc-pvtz-2.00_104.45 with the committed eri.dat, default
      "fused" triples tier (K1): HF, MP2, CCSD and CCSD(T) totals within
      1e-8 Ha of the JAX package's CPU run (expected_jax_cpu.json) and
-     equal SCF and CC iteration counts;
+     equal SCF and CC iteration counts; then the same inputs at
+     "hybrid", bench.py's headline configuration (`hybrid_pvtz_spinorb`);
   5. its "pallas" triples tier (K2) on the same converged amplitudes:
      E(T) within 1e-9 of the fused tier and of JAX's f64 E(T);
   6. the restricted path, `run_calculation` on the same inputs with the
      CRCCSD(T)_spatial els.in of expected_jax_cpu_crccsd_t_spatial.json,
      default "fused" triples tier (K3): every breakdown value within
      1e-8 of that file (the JAX package's CPU run) and equal SCF and CC
-     iteration counts;
+     iteration counts; then at "hybrid" (`hybrid_pvtz_spatial`, after
+     phase 7);
   7. its "tiled" (K4) and "pallas" (K5) triples tiers on the same
      converged amplitudes: the six triples energies, D[T] and D(T) within
      1e-9 of the fused tier and of JAX's f64 values;
@@ -64,12 +71,13 @@ line with its wall time:
  11. the dimer: s/t/v.dat and a packed eri.npy from the engine on the
      card (the ERIs within 1e-12 of the JAX sample in
      data/h2o-dimer-cc-pvtz/expected_jax_cpu_crccsd_t_spatial.json),
-     `run_calculation` through that eri.npy with the committed els.in
-     ("hybrid", run in f64): every breakdown value within 1e-8 of the
-     JAX package's f64 CPU run, equal SCF and CC iteration counts, HF and
-     MP2 within 1e-8 of oracle.json, K3 launched once and no other kernel;
-     then K3, K4 and K5 held and timed on the path's own amplitudes, and
-     the "tiled" and "pallas" tiers within 1e-10 of the K3 path;
+     `run_calculation` through that eri.npy with the committed els.in at
+     "f64": every breakdown value within 1e-8 of the JAX package's f64
+     CPU run, equal SCF and CC iteration counts, HF and MP2 within 1e-8
+     of oracle.json, K3 launched once and no other kernel; then K3, K4
+     and K5 held and timed on the path's own amplitudes, and the "tiled"
+     and "pallas" tiers within 1e-10 of the K3 path; then the committed
+     els.in as written, "hybrid" (`dimer_hybrid_path`);
  12. the spin-orbital dimer: the same inputs with the committed els.in
      at calc_type "CCSD(T)_spinorb" and ccsd_precision "f64" through
      `run_calculation`: vvvv held as its two spin blocks by the 4e9-byte
@@ -79,19 +87,33 @@ line with its wall time:
      other kernel, the card's peak memory; CCSD corr and E(T) against the
      restricted dimer printed, not gated; then K1 held and timed on the
      path's amplitudes, and the "pallas" tier (K2) within 1e-9 of K1's
-     E(T), with K2's row on its first chunk of panels;
+     E(T), with K2's row on its first chunk of panels; then at "hybrid"
+     (`spinorb_dimer_hybrid_path`);
  13. the trimer: the engine's one-electron integrals against the
      committed s/t/v.dat and its ERIs packed into eri.npy beside copies
-     of the committed inputs; the committed els.in ("hybrid", run in
-     f64) through `run_calculation`: every breakdown value within 1e-8
-     of the JAX package's f64 CPU run and equal SCF and CC iteration
-     counts (data/h2o-trimer-cc-pvtz/expected_jax_cpu_crccsd_t_spatial
-     .json, whose ERI sample holds the engine's to 1e-12), HF and MP2
-     within 1e-8 of oracle.json, K4 once and no other kernel, the card's
-     peak memory; then K4 held and timed on the path's amplitudes;
- 14. one JSON line of the kernels, a row for each kernel at each shape
-     timed: launches on the path that runs it, times, bound, the bound's
-     share of the time and errors, and the splits of K1, K3 and K4.
+     of the committed inputs; the committed els.in at "f64" through
+     `run_calculation`: every breakdown value within 1e-8 of the JAX
+     package's f64 CPU run and equal SCF and CC iteration counts
+     (data/h2o-trimer-cc-pvtz/expected_jax_cpu_crccsd_t_spatial.json,
+     whose ERI sample holds the engine's to 1e-12), HF and MP2 within
+     1e-8 of oracle.json, K4 once and no other kernel, the card's peak
+     memory; then K4 held and timed on the path's amplitudes; then the
+     committed els.in as written, "hybrid" (`trimer_hybrid_path`);
+ 14. one JSON line of every path's metrics (`paths`: wall, CC iteration
+     ms, CCSD TFLOP/s by flops.py, peak memory), and one of the kernels,
+     a row for each kernel at each shape timed: launches on the path
+     that runs it, times, bound, the bound's share of the time and
+     errors, and the splits of K1, K3 and K4.
+
+Each hybrid path (`hybrid_path`) is held to the JAX package's CPU run at
+"hybrid" (`expected_jax_cpu*_hybrid.json`, tools/make_torch_dimer_fixture.py
+--precision hybrid): the CCSD ran the digit GEMMs (precision_used
+"hybrid", digit-pair GEMMs launched, no line beyond JAX's report),
+every breakdown value within 1e-8, CCSD correlation within 1e-10,
+equal SCF and CC iteration counts, the triples within 1e-10 of JAX's
+f64 triples on its own hybrid amplitudes, K1, K3 or K4 launched once
+and no other kernel; it prints its metrics beside those of the f64 path
+at the same input.
 
 On every path each text table must be parsed by the C scanner: a file
 that went through the numpy route fails the check.
@@ -123,11 +145,23 @@ DIMER_EXPECTED = DIMER / "expected_jax_cpu_crccsd_t_spatial.json"
 SPINORB_DIMER_EXPECTED = DIMER / "expected_jax_cpu_ccsd_t_spinorb.json"
 TRIMER = REPO / "data" / "h2o-trimer-cc-pvtz"
 TRIMER_EXPECTED = TRIMER / "expected_jax_cpu_crccsd_t_spatial.json"
+# the JAX package's CPU runs at ccsd_precision "hybrid" (digit-GEMM CCSD),
+# with its f64 triples on its own hybrid amplitudes
+# (tools/make_torch_dimer_fixture.py --precision hybrid)
+HYBRID_EXPECTED = {
+    "hybrid_pvtz_spinorb": FIXTURE / "expected_jax_cpu_hybrid.json",
+    "hybrid_pvtz_spatial": FIXTURE / "expected_jax_cpu_crccsd_t_spatial_hybrid.json",
+    "dimer_hybrid_path": DIMER / "expected_jax_cpu_crccsd_t_spatial_hybrid.json",
+    "spinorb_dimer_hybrid_path": DIMER / "expected_jax_cpu_ccsd_t_spinorb_hybrid.json",
+    "trimer_hybrid_path": TRIMER / "expected_jax_cpu_crccsd_t_spatial_hybrid.json",
+}
 DIMER_BASIS = "cc-pvtz"  # tools/make_dimer.py
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the f64 tensor-core
 # peak (the f64 work of every kernel could at best run there)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F64_PER_S = 67e12
+# ... and its dense int8 tensor-core peak (the digit-pair GEMMs' work)
+PEAK_INT8_PER_S = 1979e12
 # a device-side wait (~25 ms) while the host queues the timed calls
 QUEUE_CYCLES = 50_000_000
 KERNEL_RTOL = 1e-11
@@ -135,6 +169,11 @@ KERNEL_FLOOR = 1e-6  # of the largest of a kernel's six sums
 ENERGY_TOL = 1e-8
 TRIPLES_TOL = 1e-9
 DIMER_TIER_TOL = 1e-10
+# the hybrid paths against the JAX package's hybrid CPU runs: CCSD
+# correlation, and the triples on the path's amplitudes against JAX's f64
+# triples on its own
+HYBRID_CCSD_TOL = 1e-10
+HYBRID_TRIPLES_TOL = 1e-10
 ERI_TOL = 1e-12
 # generated s/t/v.dat against committed ones, both printed to 15 decimals:
 # |difference| / max(1, |value|)
@@ -595,14 +634,15 @@ def dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, list]:
     kernel on that path; then K3, K4 and K5 on the path's own amplitudes,
     held against their plain versions and timed, and the "tiled" (K4) and
     "pallas" (K5) tiers against the K3 path within DIMER_TIER_TOL.  The
-    dimer's inputs are left in `wd` for the spin-orbital dimer.
-    Returns the kernels' launches on the path and its tiers, and the
-    kernel rows at the path's amplitudes."""
+    dimer's inputs are left in `wd` for the spin-orbital dimer.  The
+    committed els.in asks for "hybrid"; this path runs it at "f64"
+    (dimer_hybrid_path runs it as written).  Returns the kernels'
+    launches on the path and its tiers, the kernel rows at the path's
+    amplitudes, and the path's metrics (cc_metrics)."""
     import io
 
     import numpy as np
 
-    from afesp_tpu_torch.driver import run_calculation
     from afesp_tpu_torch.integrals import engine as E
     from afesp_tpu_torch.integrals.generate import write_dat_files
     from afesp_tpu_torch.io import dat, fastparse
@@ -635,7 +675,9 @@ def dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, list]:
             check(rel <= DAT_RTOL, f"dimer {f}: off the committed file by {rel:.3e}")
         check((wd / "geom.dat").read_bytes() == (DIMER / "geom.dat").read_bytes(),
               "the generated geom.dat differs from the committed one")
-        shutil.copy(DIMER / "els.in", wd / "els.in")
+        (wd / "els.in").write_text(els_at(DIMER, "f64"))
+        check((wd / "els.in").read_text() == want["els_in"],
+              "the staged els.in differs from the f64 reference's")
         info.update(nbasis=basis.nbf, wall_1e_s=f"{wall_1e:.3f}",
                     wall_1e_with_files_s=f"{wall_1e_files:.3f}",
                     wall_eri_s=f"{wall_eri:.3f}", vs_jax_sample=json.dumps(sampled),
@@ -643,17 +685,9 @@ def dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, list]:
 
     info = {}
     with phase("dimer_path", info):
-        for fn in kernels.values():
-            fn.launches = 0
         fastparse.ROUTES.clear()
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        res = run_calculation(wd, Reporter(stream=buf))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {n: fn.launches for n, fn in kernels.items()}
+        res, text, wall, peak, launches = run_path(torch, wd, kernels)
         routes = scanner_routes_check(fastparse, "dimer path", 3)
-        text = buf.getvalue()
         tr = res.triples
         e0 = res.e_hf + res.e_nuc
         got = {"e_hf_total": e0, "e_mp2_corr": res.e_mp2, "e_ccsd_corr": res.e_ccsd,
@@ -677,13 +711,17 @@ def dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, list]:
         for key, err in oracle_err.items():
             check(err <= ENERGY_TOL, f"dimer {key}: off oracle.json by {err:.3e}")
         check(tr.precision_used == "fused", f"dimer triples tier {tr.precision_used}")
+        check(res.cc.precision_used == "f64", f"dimer CCSD ran {res.cc.precision_used}")
         check(launches["triples_fused_spatial"] == 1,
               f"K3 launched {launches['triples_fused_spatial']} times on the dimer path")
         others = {n: c for n, c in launches.items() if n != "triples_fused_spatial" and c}
         check(not others, f"other kernels launched on the dimer path: {others}")
         walls = path_walls(text, "restricted CCSD:", "restricted completely renormalised",
                            res.cc.iterations)
+        metrics = cc_metrics(text, res, wall, peak)
         info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
+                    cc_iter_ms=metrics["cc_iter_ms"], ccsd_tflops=metrics["ccsd_tflops"],
+                    peak_memory_gb=metrics["peak_memory_gb"],
                     max_abs_err=f"{max(errs.values()):.3e}",
                     scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
                     oracle_scf_iterations=oracle["scf_iterations"],
@@ -691,7 +729,7 @@ def dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, list]:
                     walls_s=json.dumps(walls),
                     routes=json.dumps(routes))
     for line in text.splitlines():
-        if line.lstrip().startswith(("Time taken for", "CCSD arithmetic")):
+        if line.lstrip().startswith("Time taken for"):
             print(f"  {line.strip()}", flush=True)
 
     # K3, K4 and K5 on the path's own amplitudes, held and timed
@@ -731,7 +769,7 @@ def dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, list]:
                         launches=json.dumps({kname: tier_launches[kname]}))
     for name, r in rows.items():
         r["launches"] = tier_launches[name]
-    return tier_launches, list(rows.items())
+    return tier_launches, list(rows.items()), metrics
 
 
 def path_walls(text: str, cc_label: str, triples_label: str, cc_iterations: int) -> dict:
@@ -758,10 +796,10 @@ def spinorb_dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, lis
     dimer reference are printed, not gated.  Then K1 on the path's
     amplitudes, held and timed, and the "pallas" tier (panels + K2) on
     the same amplitudes, within TRIPLES_TOL of K1's E(T), with K2's row
-    on its first chunk.  Returns K1's and K2's launches and their rows."""
+    on its first chunk.  Returns K1's and K2's launches, their rows and
+    the path's metrics (cc_metrics)."""
     import io
 
-    from afesp_tpu_torch.driver import run_calculation
     from afesp_tpu_torch.io import fastparse
     from afesp_tpu_torch.io.report import Reporter
     from afesp_tpu_torch.methods import ccsd_spinorb as CS
@@ -770,31 +808,17 @@ def spinorb_dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, lis
 
     want = json.loads(SPINORB_DIMER_EXPECTED.read_text())
     spatial = json.loads(DIMER_EXPECTED.read_text())
-    els = (DIMER / "els.in").read_text()
-    for old, new in (('calc_type="CRCCSD(T)_spatial"', 'calc_type="CCSD(T)_spinorb"'),
-                     ('ccsd_precision = "hybrid"', 'ccsd_precision = "f64"')):
-        check(old in els, f"the dimer's els.in has no line {old!r}")
-        els = els.replace(old, new)
+    els = els_at(DIMER, "f64", spinorb=True)
     check(els == want["els_in"], "the staged els.in differs from the spin-orbital reference's")
     (wd / "els.in").write_text(els)
 
     info = {}
     with phase("spinorb_dimer_path", info):
-        for fn in kernels.values():
-            fn.launches = 0
         fastparse.ROUTES.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         held_before = torch.cuda.memory_allocated()
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        res = run_calculation(wd, Reporter(stream=buf))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        launches = {n: fn.launches for n, fn in kernels.items()}
+        res, text, wall, peak, launches = run_path(torch, wd, kernels)
         routes = scanner_routes_check(fastparse, "spin-orbital dimer path", 3)
-        text = buf.getvalue()
+        check(res.cc.precision_used == "f64", f"spin-orbital dimer CCSD ran {res.cc.precision_used}")
         sl = res.cc.slices
         check(CS._BLOCK_VVVV_BYTES == 4e9, f"_BLOCK_VVVV_BYTES is {CS._BLOCK_VVVV_BYTES!r}")
         check(res.sys.nvirt**4 * 8 > CS._BLOCK_VVVV_BYTES,
@@ -805,6 +829,7 @@ def spinorb_dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, lis
               f"K1 launched {launches['triples_fused']} times on the spin-orbital dimer path")
         others = {n: c for n, c in launches.items() if n != "triples_fused" and c}
         check(not others, f"other kernels launched on the spin-orbital dimer path: {others}")
+        metrics = cc_metrics(text, res, wall, peak)
         e_t = res.e_ccsd_t - res.e_ccsd
         errs = {label: abs(val - want["breakdown_values"][label])
                 for label, val in printed_values(text, want["breakdown"]).items()}
@@ -822,6 +847,7 @@ def spinorb_dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, lis
         cross = {"ccsd_corr": res.e_ccsd - spatial["e_ccsd_corr"],
                  "e_t": e_t - (spatial["triples"]["e_ccsd_tt"] - spatial["e_ccsd_corr"])}
         info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
+                    cc_iter_ms=metrics["cc_iter_ms"], ccsd_tflops=metrics["ccsd_tflops"],
                     max_abs_err=f"{max(errs.values()):.3e}", e_t=repr(e_t),
                     scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
                     walls_s=json.dumps(path_walls(text, "unrestricted CCSD:",
@@ -871,29 +897,27 @@ def spinorb_dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, lis
     k1.update(source=K1_SOURCE, replaces=K1_REPLACES, launches=launches["triples_fused"])
     k2["launches"] = pallas_launches["triples_finale"]
     return ({"triples_fused": k1["launches"], "triples_finale": k2["launches"]},
-            [("triples_fused", k1), ("triples_finale", k2)])
+            [("triples_fused", k1), ("triples_finale", k2)], metrics)
 
 
 def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
     """The 174-bf water trimer, CRCCSD(T)_spatial, end to end on the
     card: the engine computes its one-electron integrals (held against
     the committed s/t/v.dat) and writes its ERIs, packed, as eri.npy in
-    a temporary directory beside copies of the committed s/t/v.dat,
-    geom.dat and els.in ("hybrid": K4 at nvirt 159); run_calculation
-    there.  The gate is the JAX package's f64 CPU run
+    a temporary directory beside copies of the committed s/t/v.dat and
+    geom.dat and the committed els.in at "f64" (K4 at nvirt 159);
+    run_calculation there.  The gate is the JAX package's f64 CPU run
     (expected_jax_cpu_crccsd_t_spatial.json: the ERIs within ERI_TOL of
     its sample, every breakdown value within ENERGY_TOL, equal SCF and CC
     iteration counts), with HF and MP2 cross-checked against oracle.json
     as for the dimer.  K4 once and no other kernel; then K4 on the path's
-    own amplitudes, held and timed.  Returns K4's launches and its row."""
-    import io
-
+    own amplitudes, held and timed; then the committed els.in as written
+    ("hybrid", trimer_hybrid_path).  Returns K4's launches, its row and
+    the two paths' metrics."""
     import numpy as np
 
-    from afesp_tpu_torch.driver import run_calculation
     from afesp_tpu_torch.integrals import engine as E
     from afesp_tpu_torch.io import dat, fastparse
-    from afesp_tpu_torch.io.report import Reporter
     from afesp_tpu_torch.methods import triples_spatial as TS
 
     want = json.loads(TRIMER_EXPECTED.read_text())
@@ -923,29 +947,22 @@ def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
                 rels[name] = float(((M.cpu() - ref).abs() / ref.abs().clamp(min=1.0)).max())
                 check(rels[name] <= DAT_RTOL,
                       f"trimer {name}: engine off the committed file by {rels[name]:.3e}")
-            for f in ("s.dat", "t.dat", "v.dat", "geom.dat", "els.in"):
+            for f in ("s.dat", "t.dat", "v.dat", "geom.dat"):
                 shutil.copy(TRIMER / f, wd / f)
+            (wd / "els.in").write_text(els_at(TRIMER, "f64"))
+            check((wd / "els.in").read_text() == want["els_in"],
+                  "the staged trimer els.in differs from the f64 reference's")
             info.update(nbasis=basis.nbf, wall_1e_s=f"{wall_1e:.3f}",
                         wall_eri_s=f"{wall_eri:.3f}", vs_jax_sample=json.dumps(sampled),
                         dat_rel_err=json.dumps({k: f"{v:.3e}" for k, v in rels.items()}))
 
         info = {}
         with phase("trimer_path", info):
-            for fn in kernels.values():
-                fn.launches = 0
             fastparse.ROUTES.clear()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
             held_before = torch.cuda.memory_allocated()
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            res = run_calculation(wd, Reporter(stream=buf))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated()
-            launches = {n: fn.launches for n, fn in kernels.items()}
+            res, text, wall, peak, launches = run_path(torch, wd, kernels)
             routes = scanner_routes_check(fastparse, "trimer path", 3)
-            text = buf.getvalue()
+            check(res.cc.precision_used == "f64", f"trimer CCSD ran {res.cc.precision_used}")
             tr = res.triples
             check(tr.precision_used == "tiled", f"trimer triples tier {tr.precision_used}")
             check(launches["triples_tiled_spatial"] == 1,
@@ -973,7 +990,9 @@ def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
                           "e_mp2_corr": abs(res.e_mp2 - oracle["e_mp2_corr"])}
             for key, err in oracle_err.items():
                 check(err <= ENERGY_TOL, f"trimer {key}: off oracle.json by {err:.3e}")
+            metrics = cc_metrics(text, res, wall, peak)
             info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
+                        cc_iter_ms=metrics["cc_iter_ms"], ccsd_tflops=metrics["ccsd_tflops"],
                         max_abs_err=f"{max(errs.values()):.3e}",
                         scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
                         oracle_err=json.dumps({k: f"{v:.3e}" for k, v in oracle_err.items()}),
@@ -985,8 +1004,7 @@ def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
                         routes=json.dumps(routes))
         lines = text.splitlines()
         start = next(i for i, ln in enumerate(lines) if "Final energy breakdown" in ln)
-        for line in [ln for ln in lines if ln.lstrip().startswith(("Time taken for",
-                                                                   "CCSD arithmetic"))] + \
+        for line in [ln for ln in lines if ln.lstrip().startswith("Time taken for")] + \
                 lines[start - 1 : start - 1 + len(want["breakdown"])]:
             print(f"  {line.rstrip()}", flush=True)
 
@@ -1005,9 +1023,241 @@ def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
             check(list(rows) == ["triples_tiled_spatial"], f"trimer kernel rows {list(rows)}")
             info.update({n: json.dumps(r) for n, r in rows.items()})
         rows["triples_tiled_spatial"]["launches"] = launches["triples_tiled_spatial"]
+        del res, cc, v, args, Iv, Jo
+        torch.cuda.empty_cache()
+        # the committed els.in as written: the digit-GEMM CCSD
+        shutil.copy(TRIMER / "els.in", wd / "els.in")
+        hybrid = hybrid_path(torch, "trimer_hybrid_path", wd, kernels, "triples_tiled_spatial",
+                             metrics)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
-    return launches["triples_tiled_spatial"], list(rows.items())
+    return launches["triples_tiled_spatial"], list(rows.items()), {
+        "trimer_path": metrics, "trimer_hybrid_path": hybrid}
+
+
+def cc_metrics(text: str, res, wall: float, peak: int) -> dict:
+    """A path's wall, CC iterations, CC iteration ms (the report's CCSD
+    stage over its iterations, the hybrid constants' digitizing
+    included), CCSD TFLOP/s (flops.py's count for the arithmetic that
+    ran, over that time) and peak card memory."""
+    from afesp_tpu_torch import flops
+
+    cc = res.cc
+    o, v = res.sys.nocc, res.sys.nvirt
+    restricted = res.cfg.restricted
+    ccsd_s = stage_wall(text, "restricted CCSD:" if restricted else "unrestricted CCSD:")
+    count = (flops.spatial_ccsd_iteration_flops(o, v, cc.precision_used) if restricted
+             else flops.spinorb_ccsd_iteration_flops(o, v, cc.precision_used))
+    per_it = ccsd_s / cc.iterations
+    return {"wall_s": round(wall, 4), "ccsd_s": ccsd_s, "cc_iterations": cc.iterations,
+            "cc_iter_ms": round(1e3 * per_it, 3),
+            "ccsd_tflops": round(count / per_it / 1e12, 4),
+            "flops_per_iteration": count, "precision_used": cc.precision_used,
+            "peak_memory_gb": round(peak / 1e9, 3)}
+
+
+def run_path(torch, wd: Path, kernels: dict):
+    """run_calculation on `wd` with every kernel count and the digit
+    pair GEMMs' count set to 0 just before and read just after, the peak
+    card memory reset before.  Returns (res, report text, wall, peak,
+    launches)."""
+    import io
+
+    from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.io.report import Reporter
+    from afesp_tpu_torch.ops import exact_gemm as EG
+
+    for fn in kernels.values():
+        fn.launches = 0
+    EG.digit_pair_gemm.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    res = run_calculation(wd, Reporter(stream=buf))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    launches["digit_pair_gemm"] = EG.digit_pair_gemm.launches
+    return res, buf.getvalue(), wall, peak, launches
+
+
+def hybrid_path(torch, name: str, wd: Path, kernels: dict, kernel: str, f64: dict) -> dict:
+    """One hybrid path: run_calculation on `wd`, whose els.in must equal
+    the JAX package's hybrid reference's, on the card.  The CCSD must run
+    the digit GEMMs (precision_used "hybrid", digit-pair GEMMs launched,
+    no extra report line); every breakdown value within ENERGY_TOL of
+    the reference, CCSD correlation within HYBRID_CCSD_TOL, equal SCF
+    and CC iteration counts, the triples within HYBRID_TRIPLES_TOL of
+    JAX's f64 triples on its hybrid amplitudes, `kernel` launched once
+    and no other kernel.  Prints the path's metrics beside `f64`, those
+    of the f64 path at the same input.  Returns the metrics."""
+    from afesp_tpu_torch.io import fastparse
+
+    want = json.loads(HYBRID_EXPECTED[name].read_text())
+    check((wd / "els.in").read_text() == want["els_in"],
+          f"{name}: the staged els.in differs from the hybrid reference's")
+    info = {}
+    with phase(name, info):
+        fastparse.ROUTES.clear()
+        res, text, wall, peak, launches = run_path(torch, wd, kernels)
+        routes = scanner_routes_check(fastparse, name, 3)
+        check(res.cc.precision_used == "hybrid",
+              f"{name}: the CCSD ran {res.cc.precision_used}, not the digit GEMMs")
+        check(launches["digit_pair_gemm"] > 0, f"{name}: no digit-pair GEMM launched")
+        check("CCSD arithmetic" not in text, f"{name}: the report has a line JAX's has not")
+        errs = {label: abs(val - want["breakdown_values"][label])
+                for label, val in printed_values(text, want["breakdown"]).items()}
+        check(len(errs) == len(want["breakdown_values"]),
+              f"{name}: the breakdown lacks a line of the reference's")
+        for key, err in errs.items():
+            check(err <= ENERGY_TOL, f"{name} {key}: off the JAX hybrid value by {err:.3e}")
+        ccsd_err = abs(res.e_ccsd - want["e_ccsd_corr"])
+        check(ccsd_err <= HYBRID_CCSD_TOL,
+              f"{name}: CCSD corr {res.e_ccsd!r} vs JAX hybrid {want['e_ccsd_corr']!r}")
+        check(res.hf.iterations == want["scf_iterations"],
+              f"{name}: SCF iterations {res.hf.iterations} vs JAX {want['scf_iterations']}")
+        check(res.cc.iterations == want["cc_iterations"],
+              f"{name}: CC iterations {res.cc.iterations} vs JAX {want['cc_iterations']}")
+        if res.cfg.restricted:
+            t_errs = {k: abs(getattr(res.triples, k) - w) for k, w in want["triples"].items()}
+        else:
+            t_errs = {"e_t": abs(res.e_ccsd_t - res.e_ccsd - want["spinorb_triples"]["e_t_f64"])}
+        for key, err in t_errs.items():
+            check(err <= HYBRID_TRIPLES_TOL,
+                  f"{name} {key}: off JAX's f64 triples on its hybrid amplitudes by {err:.3e}")
+        check(launches[kernel] == 1, f"{name}: {kernel} launched {launches[kernel]} times")
+        others = {n: c for n, c in launches.items()
+                  if n not in (kernel, "digit_pair_gemm") and c}
+        check(not others, f"{name}: other kernels launched: {others}")
+        metrics = cc_metrics(text, res, wall, peak)
+        info.update(**{k: metrics[k] for k in ("wall_s", "cc_iterations", "cc_iter_ms",
+                                               "ccsd_tflops", "peak_memory_gb")},
+                    f64_path=json.dumps({k: f64[k] for k in ("wall_s", "cc_iterations",
+                                                             "cc_iter_ms", "ccsd_tflops",
+                                                             "peak_memory_gb")}),
+                    launches=json.dumps(launches),
+                    max_abs_err_breakdown=f"{max(errs.values()):.3e}",
+                    ccsd_corr_err=f"{ccsd_err:.3e}",
+                    triples_err=json.dumps({k: f"{v:.3e}" for k, v in t_errs.items()}),
+                    scf_iterations=res.hf.iterations, routes=json.dumps(routes))
+    for line in text.splitlines():
+        if line.lstrip().startswith("Time taken for"):
+            print(f"  {line.strip()}", flush=True)
+    return metrics
+
+
+def digit_gemm_phase(torch, dev) -> None:
+    """The digit GEMM (ops/exact_gemm) on the card.  At the pVTZ paths'
+    shapes, on seeded inputs: exact_gemm and exact_einsum equal the
+    port's own CPU result bit for bit on every flat-scale route (direct,
+    A_pre, B_pre, both, the int8 recombination) and on both pair routes
+    (_int_mm, f32); prechunk_B_chunkscaled through exact_gemm and
+    gemm_B_pre_streamed within 1e-14 of scale of the CPU's.  At the
+    dimer's vvvv shapes (spatial: v_vvvv (11236, 11236) at L=6/maxdeg=7
+    against c_oovv (11236, 100), as the iteration calls it; spin-orbital:
+    a tau block (400, 11236) against a vvvv spin block (11236, 11236) at
+    L=5/maxdeg=6): the digit GEMM's ms (the constant digitized once, the
+    other operand digitized in the call) on each route against
+    torch.matmul's f64 ms for the same product, the int8 bound (the
+    pair products' ops over the int8 peak, or the bytes over HBM), and
+    the error against the f64 product.  Nothing here counts toward a
+    path's launches."""
+    import numpy as np
+
+    from afesp_tpu_torch.flops import digit_pairs
+    from afesp_tpu_torch.ops import exact_gemm as EG
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "f32 matmul runs TF32")
+    check(torch.get_float32_matmul_precision() == "highest", "f32 matmul precision is not highest")
+    rng = np.random.default_rng(20261017)
+    info = {}
+    with phase("digit_gemm", info):
+        # (M, K, N, L, maxdeg): the spin-orbital pVTZ vvvv block
+        # (o^2 = 100, (v/2)^2 = 2809) and the restricted one (v_vvvv
+        # (2809, 2809) against c_oovv (2809, 25))
+        checked = 0
+        for M, K, N, L, maxdeg in ((100, 2809, 2809, 5, 6), (2809, 2809, 25, 6, 7)):
+            A = torch.as_tensor(rng.standard_normal((M, K)))
+            B = torch.as_tensor(rng.standard_normal((K, N)) * 0.05)
+            Ad, Bd = A.to(dev), B.to(dev)
+            want = EG.exact_gemm(A, B, L=L, maxdeg=maxdeg)
+            want8 = EG.exact_gemm(A, B, L=L, maxdeg=maxdeg, digit_dtype=torch.int8)
+            for route in EG.ROUTES:
+                got = {
+                    "direct": EG.exact_gemm(Ad, Bd, L=L, maxdeg=maxdeg, route=route),
+                    "A_pre": EG.exact_gemm(B=Bd, A_pre=EG.prechunk_A(Ad, L), maxdeg=maxdeg,
+                                           route=route),
+                    "B_pre": EG.exact_gemm(A=Ad, B_pre=EG.prechunk_B(Bd, L), maxdeg=maxdeg,
+                                           route=route),
+                    "both": EG.exact_gemm(A_pre=EG.prechunk_A(Ad, L),
+                                          B_pre=EG.prechunk_B(Bd, L), maxdeg=maxdeg,
+                                          route=route),
+                    "int8_dtype": EG.exact_gemm(Ad, Bd, L=L, maxdeg=maxdeg,
+                                                digit_dtype=torch.int8, route=route),
+                }
+                for key, g in got.items():
+                    ref = want8 if key == "int8_dtype" else want
+                    check(torch.equal(g.cpu(), ref),
+                          f"digit GEMM ({M},{K},{N}) {route} {key}: the card differs from the CPU")
+                    checked += 1
+        # exact_einsum at call sites of the two pVTZ iterations
+        for spec, (o, v), L, maxdeg in (("miea,mbej->ijab", (10, 106), 5, 6),
+                                        ("mjae,iemb->ijab", (5, 53), 6, 7),
+                                        ("efab,ijef->ijab", (5, 53), 6, 7)):
+            ins = spec.split("->")[0].split(",")
+            ops = [torch.as_tensor(rng.standard_normal([v if c in "abef" else o for c in t]))
+                   for t in ins]
+            want = EG.exact_einsum(spec, *ops, L=L, maxdeg=maxdeg)
+            got = EG.exact_einsum(spec, *(x.to(dev) for x in ops), L=L, maxdeg=maxdeg)
+            check(torch.equal(got.cpu(), want), f"exact_einsum {spec}: the card differs")
+            checked += 1
+        K, N, M = 2809, 25, 100
+        B = torch.as_tensor(rng.standard_normal((K, N)))
+        B[K // 3:] *= 1e-6
+        A = torch.as_tensor(rng.standard_normal((M, K)))
+        Bp, Bpd = EG.prechunk_B_chunkscaled(B, 6), EG.prechunk_B_chunkscaled(B.to(dev), 6)
+        want = EG.exact_gemm(A=A, B_pre=Bp, maxdeg=7)
+        scale = float(want.abs().max())
+        chunk_err = max(float((g.cpu() - want).abs().max()) / scale for g in (
+            EG.exact_gemm(A=A.to(dev), B_pre=Bpd, maxdeg=7),
+            EG.gemm_B_pre_streamed(A.to(dev), Bpd, maxdeg=7)))
+        check(chunk_err <= 1e-14, f"chunk-scaled digit GEMM off the CPU's by {chunk_err:.3e}")
+        info.update(bitwise_checks=checked, chunkscaled_rel_err=f"{chunk_err:.3e}")
+
+    # the dimer's vvvv shapes, timed
+    for label, (M, K, N, L, maxdeg, const) in {
+            "spatial_vvvv": (11236, 11236, 100, 6, 7, "A"),
+            "spinorb_vvvv_block": (400, 11236, 11236, 5, 6, "B")}.items():
+        info = {}
+        with phase(f"digit_gemm_{label}", info):
+            A = torch.as_tensor(rng.standard_normal((M, K)), device=dev)
+            B = torch.as_tensor(rng.standard_normal((K, N)) * 0.05, device=dev)
+            pre = EG.prechunk_A(A, L) if const == "A" else EG.prechunk_B(B, L)
+            call = {"A": lambda route: EG.exact_gemm(B=B, A_pre=pre, maxdeg=maxdeg, route=route),
+                    "B": lambda route: EG.exact_gemm(A=A, B_pre=pre, maxdeg=maxdeg,
+                                                     route=route)}[const]
+            ref = A @ B
+            ms = {route: cuda_ms(torch, lambda: call(route), reps=3) for route in EG.ROUTES}
+            f64_ms = cuda_ms(torch, lambda: A @ B, reps=3)
+            err = float((call("int8") - ref).abs().max() / ref.abs().max())
+            # the truncation at depth L: ~2^-7L of the row x column scale,
+            # summed over K (the CPU tests' bound)
+            check(err <= 2.0 ** (10 - 7 * L), f"digit GEMM {label}: off the f64 product by {err:.3e}")
+            pairs = digit_pairs(L, maxdeg)
+            ops = pairs * 2.0 * M * K * N
+            nbytes = L * M * K + K * N * 8 + M * N * 8 if const == "A" else \
+                M * K * 8 + L * K * N + M * N * 8
+            bound = max(ops / PEAK_INT8_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+            info.update(shape=f"({M},{K})x({K},{N})", L=L, maxdeg=maxdeg, pairs=pairs,
+                        int8_ms=f"{ms['int8']:.4f}", f32_ms=f"{ms['f32']:.4f}",
+                        f64_matmul_ms=f"{f64_ms:.4f}", int8_bound_ms=f"{bound:.4f}",
+                        bound_by="operations" if ops / PEAK_INT8_PER_S
+                        >= nbytes / HBM_BYTES_PER_S else "bytes",
+                        rel_err_vs_f64=f"{err:.3e}")
+            del A, B, pre, ref
+        torch.cuda.empty_cache()
 
 
 def printed_values(text: str, reference_block: list) -> dict:
@@ -1024,6 +1274,20 @@ def printed_values(text: str, reference_block: list) -> dict:
     return out
 
 
+def els_at(d: Path, precision: str, spinorb: bool = False) -> str:
+    """The committed `d`/els.in (which asks for "hybrid") at
+    `precision`, with `spinorb` at calc_type "CCSD(T)_spinorb": the
+    els.in of the JAX references (tools/make_torch_dimer_fixture.py)."""
+    els = (d / "els.in").read_text()
+    for old, new in (('ccsd_precision = "hybrid"', f'ccsd_precision = "{precision}"'),
+                     ('calc_type="CRCCSD(T)_spatial"',
+                      'calc_type="CCSD(T)_spinorb"' if spinorb else None)):
+        check(old in els, f"{d / 'els.in'} has no line {old!r}")
+        if new is not None:
+            els = els.replace(old, new)
+    return els
+
+
 def stage_workdir(els_in: str | None = None) -> Path:
     wd = Path(tempfile.mkdtemp(prefix="afesp_chip_smoke_"))
     for f in ("s.dat", "t.dat", "v.dat", "geom.dat", "els.in"):
@@ -1038,8 +1302,9 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
     """Phases 6 and 7: the restricted path through run_calculation (on
     `device`; None is the entry point's default, the card) against the
     JAX reference file, then its "tiled" and "pallas" triples tiers on
-    the converged amplitudes.  Returns K3's launches on the path and
-    K4's and K5's on their tiers."""
+    the converged amplitudes; then the same inputs at "hybrid"
+    (hybrid_pvtz_spatial).  Returns K3's launches on the path, K4's and
+    K5's on their tiers, and the two paths' metrics."""
     import io
 
     from afesp_tpu_torch.driver import run_calculation
@@ -1054,11 +1319,14 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
             for fn in kernels.values():
                 fn.launches = 0
             fastparse.ROUTES.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             buf = io.StringIO()
             t0 = time.perf_counter()
             sres = run_calculation(wd, Reporter(stream=buf), device=device)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            metrics = cc_metrics(buf.getvalue(), sres, wall, torch.cuda.max_memory_allocated())
             spatial_launches = {n: fn.launches for n, fn in kernels.items()}
             routes = scanner_routes_check(fastparse, "restricted path", 4)
             tr = sres.triples
@@ -1089,6 +1357,7 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
             stage_walls = [ln.strip() for ln in buf.getvalue().splitlines()
                            if ln.lstrip().startswith("Time taken for")]
             info.update(wall_s=f"{wall:.3f}", launches=json.dumps(spatial_launches),
+                        cc_iter_ms=metrics["cc_iter_ms"], ccsd_tflops=metrics["ccsd_tflops"],
                         max_abs_err=f"{max(errs.values()):.3e}",
                         scf_iterations=sres.hf.iterations, cc_iterations=sres.cc.iterations,
                         read_in_s=stage_wall(buf.getvalue(), "system initialisation"),
@@ -1124,7 +1393,16 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
     finally:
         shutil.rmtree(wd, ignore_errors=True)
 
-    return spatial_launches["triples_fused_spatial"], tier_launches
+    # the same inputs at "hybrid": the digit-GEMM CCSD, then K3
+    want = json.loads(HYBRID_EXPECTED["hybrid_pvtz_spatial"].read_text())
+    wd = stage_workdir(want["els_in"])
+    try:
+        hybrid = hybrid_path(torch, "hybrid_pvtz_spatial", wd, kernels, "triples_fused_spatial",
+                             metrics)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return spatial_launches["triples_fused_spatial"], tier_launches, {
+        "spatial_path": metrics, "hybrid_pvtz_spatial": hybrid}
 
 
 def amplitudes_restart(torch, spatial: dict) -> None:
@@ -1243,6 +1521,7 @@ def main() -> int:
             big = spatial_kernel_checks(torch, dev, o=o, v=v)
             info.update({n: json.dumps(r) for n, r in big.items()})
             table += list(big.items())
+    digit_gemm_phase(torch, dev)
 
     wd = stage_workdir()
     try:
@@ -1251,11 +1530,15 @@ def main() -> int:
             for fn in kernels.values():
                 fn.launches = 0
             fastparse.ROUTES.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             buf = io.StringIO()
             t0 = time.perf_counter()
             res = run_calculation(wd, Reporter(stream=buf))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            paths = {"main_path": cc_metrics(buf.getvalue(), res, wall,
+                                             torch.cuda.max_memory_allocated())}
             launches = {n: fn.launches for n, fn in kernels.items()}
             routes = scanner_routes_check(fastparse, "spin-orbital path", 4)
             e0 = res.e_hf + res.e_nuc
@@ -1276,6 +1559,8 @@ def main() -> int:
             stage_walls = [ln.strip() for ln in buf.getvalue().splitlines()
                            if ln.lstrip().startswith("Time taken for")]
             info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
+                        cc_iter_ms=paths["main_path"]["cc_iter_ms"],
+                        ccsd_tflops=paths["main_path"]["ccsd_tflops"],
                         max_abs_energy_err=f"{max(abs(v - expected[k]) for k, v in got.items()):.3e}",
                         scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations,
                         read_in_s=stage_wall(buf.getvalue(), "system initialisation"),
@@ -1308,21 +1593,39 @@ def main() -> int:
                         launches=json.dumps(pallas_launches))
     finally:
         shutil.rmtree(wd, ignore_errors=True)
+    # bench.py's headline configuration: the same inputs at "hybrid"
+    wd = stage_workdir(json.loads(HYBRID_EXPECTED["hybrid_pvtz_spinorb"].read_text())["els_in"])
+    try:
+        paths["hybrid_pvtz_spinorb"] = hybrid_path(torch, "hybrid_pvtz_spinorb", wd, kernels,
+                                                   "triples_fused", paths["main_path"])
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
 
-    spatial_launches, tier_launches = spatial_phases(torch, kernels, spatial)
+    spatial_launches, tier_launches, spatial_paths = spatial_phases(torch, kernels, spatial)
+    paths |= spatial_paths
     amplitudes_restart(torch, spatial)
     read_in_walls(torch)
     engine_pvtz(torch, dev)
     wd = Path(tempfile.mkdtemp(prefix="afesp_chip_dimer_"))
     try:
-        dimer_launches, dimer_rows = dimer_phases(torch, dev, kernels, wd)
+        dimer_launches, dimer_rows, paths["dimer_path"] = dimer_phases(torch, dev, kernels, wd)
         table += dimer_rows
-        _, spinorb_rows = spinorb_dimer_phases(torch, dev, kernels, wd)
+        # the committed els.in as written: the digit-GEMM CCSD, then K3
+        shutil.copy(DIMER / "els.in", wd / "els.in")
+        paths["dimer_hybrid_path"] = hybrid_path(torch, "dimer_hybrid_path", wd, kernels,
+                                                 "triples_fused_spatial", paths["dimer_path"])
+        _, spinorb_rows, paths["spinorb_dimer_path"] = spinorb_dimer_phases(torch, dev,
+                                                                            kernels, wd)
         table += spinorb_rows
+        (wd / "els.in").write_text(els_at(DIMER, "hybrid", spinorb=True))
+        paths["spinorb_dimer_hybrid_path"] = hybrid_path(
+            torch, "spinorb_dimer_hybrid_path", wd, kernels, "triples_fused",
+            paths["spinorb_dimer_path"])
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     torch.cuda.empty_cache()
-    _, trimer_rows = trimer_phases(torch, dev, kernels)
+    _, trimer_rows, trimer_paths = trimer_phases(torch, dev, kernels)
+    paths |= trimer_paths
     table += trimer_rows
 
     # the path that runs each kernel: K1 the spin-orbital main path, K2 its
@@ -1344,6 +1647,8 @@ def main() -> int:
             "bound_share": b_ms / r["ms"],
             **{k: r[k] for k in ("split_ms", "group_ms") if k in r},
         })
+    # every path's metrics (cc_metrics), f64 and hybrid
+    print(json.dumps({"paths": paths}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(f"{smi}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

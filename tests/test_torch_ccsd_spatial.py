@@ -147,19 +147,42 @@ def test_ccsd_matches_jax(stages, jax_cc, tmp_path):
     assert res.t1_diagnostic > 0.02 and diag[1] == WARNING
 
 
-def test_ccsd_precision_modes_run_f64(stages, jax_cc, tmp_path):
-    """"hybrid", "pallas" and "fused" run the same f64 iteration (the
-    digit GEMMs are not ported), and say so in the report."""
-    jres, _ = jax_cc
+def test_ccsd_precision_modes_run_f64(stages, tmp_path):
+    """"f64" runs the f64 iteration; "hybrid", "pallas" and "fused" run
+    the JAX package's digit-GEMM iteration (its rule, vvvv_split), the
+    same one for all three: against JAX's "hybrid" CCSD the converged
+    energy within 1e-10 and every iteration's within 1e-10, equal
+    iteration counts, precision_used "hybrid", and no line in the report
+    beyond JAX's (the port's old "CCSD arithmetic: f64" line is gone)."""
+    cfg = read_els_in(stages["wd"])
+    cfg.ccsd_precision = "hybrid"
+    jrep = JaxReporter(stream=io.StringIO())
+    jres = jcc.do_ccsd_spatial(stages["sys_"], stages["eri_mo"], cfg, stages["hf"], jrep,
+                               tmp_path)
+    jax_energies = table_energies(jrep.stream.getvalue(), "delta RMS T2")
     st = from_jax(device="cpu", sys_=stages["sys_"], hf=stages["hf"])
-    tc = tcfg.read_els_in(stages["wd"])
-    tc.ccsd_precision = "hybrid"
-    rep = Reporter(stream=io.StringIO())
-    res = tcc.do_ccsd_spatial(st["sys_"], _t(stages["eri_mo"]), tc, st["hf"], rep, tmp_path,
-                              device="cpu")
+    runs = {}
+    for precision in ("f64", "hybrid", "pallas", "fused"):
+        tc = tcfg.read_els_in(stages["wd"])
+        tc.ccsd_precision = precision
+        rep = Reporter(stream=io.StringIO())
+        runs[precision] = tcc.do_ccsd_spatial(st["sys_"], _t(stages["eri_mo"]), tc, st["hf"],
+                                              rep, tmp_path, device="cpu")
+        text = rep.stream.getvalue()
+        assert "CCSD arithmetic" not in text
+        if precision != "f64":
+            assert len(text.split("\n")) == len(jrep.stream.getvalue().split("\n"))
+    assert runs["f64"].precision_used == "f64"
+    res = runs["hybrid"]
+    assert res.precision_used == "hybrid"
     assert abs(res.e_ccsd - jres.e_ccsd) < 1e-10
-    assert res.precision_used == "f64"
-    assert 'CCSD arithmetic: f64 (ccsd_precision="hybrid"' in rep.stream.getvalue()
+    assert res.iterations == jres.iterations == len(jax_energies)
+    assert np.max(np.abs(np.array(res.energies) - jax_energies)) < 1e-10
+    for precision in ("pallas", "fused"):
+        assert runs[precision].precision_used == "hybrid"
+        assert runs[precision].energies == res.energies
+    # the digit route is not the f64 one: the two differ past roundoff
+    assert res.energies != runs["f64"].energies
 
 
 def test_amplitude_checkpoint_round_trip(stages, tmp_path):

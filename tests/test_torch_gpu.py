@@ -382,3 +382,83 @@ def test_device_unpack_matches_unpack_eri_host():
     assert torch.equal(pack_eri(got).cpu(), torch.as_tensor(packed))
     ints = dat.IntStore(nbasis=n, eri_packed=packed)
     assert torch.equal(ints.eri_on_device(dev), got)
+
+
+# the digit GEMM's (M, K, N) on the card: ragged shapes that need the
+# _int_mm padding (M <= 16, K and N not multiples of 8), three K chunks
+# of the f32 route, and an o^2 x v^2 slice of the dimer's vvvv shape
+DIGIT_SHAPES = [(5, 13, 7), (37, 1300, 29), (100, 2809, 2809)]
+
+
+@pytest.mark.parametrize("M,K,N", DIGIT_SHAPES)
+def test_digit_gemm_on_the_card_matches_the_cpu(M, K, N):
+    """exact_gemm on the card equals its CPU run bit for bit on every
+    flat-scale route (direct, prechunked on either side and both, the
+    int8 recombination) and on both pair routes (_int_mm, f32); the
+    per-chunk-scaled operand holds 1e-14 of scale (its chunk sum
+    rounds); f32 matmul runs without TF32."""
+    import numpy as np
+
+    from afesp_tpu_torch.ops import exact_gemm as EG
+
+    dev = _card()
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    rng = np.random.default_rng(M + K + N)
+    A = torch.as_tensor(rng.standard_normal((M, K)) * np.exp(rng.uniform(-8, 8, (M, 1))))
+    B = torch.as_tensor(rng.standard_normal((K, N)) * np.exp(rng.uniform(-8, 8, (1, N))))
+    Ad, Bd = A.to(dev), B.to(dev)
+    for L, maxdeg in ((5, 6), (6, 7), (7, 8)):
+        want = EG.exact_gemm(A, B, L=L, maxdeg=maxdeg)
+        for route in EG.ROUTES:
+            got = {
+                "direct": EG.exact_gemm(Ad, Bd, L=L, maxdeg=maxdeg, route=route),
+                "A_pre": EG.exact_gemm(B=Bd, A_pre=EG.prechunk_A(Ad, L), maxdeg=maxdeg,
+                                       route=route),
+                "B_pre": EG.exact_gemm(A=Ad, B_pre=EG.prechunk_B(Bd, L), maxdeg=maxdeg,
+                                       route=route),
+                "both": EG.exact_gemm(A_pre=EG.prechunk_A(Ad, L), B_pre=EG.prechunk_B(Bd, L),
+                                      maxdeg=maxdeg, route=route),
+            }
+            for name, g in got.items():
+                assert g.device.type == "cuda"
+                assert torch.equal(g.cpu(), want), (L, maxdeg, route, name)
+            i8 = EG.exact_gemm(Ad, Bd, L=L, maxdeg=maxdeg, digit_dtype=torch.int8, route=route)
+            assert torch.equal(i8.cpu(), EG.exact_gemm(A, B, L=L, maxdeg=maxdeg,
+                                                       digit_dtype=torch.int8))
+    if K % 8 == 0 or K > 512:
+        Bp, Bpd = EG.prechunk_B_chunkscaled(B, 6), EG.prechunk_B_chunkscaled(Bd, 6)
+        want = EG.exact_gemm(A=A, B_pre=Bp, maxdeg=7)
+        scale = float(want.abs().max())
+        for got in (EG.exact_gemm(A=Ad, B_pre=Bpd, maxdeg=7),
+                    EG.gemm_B_pre_streamed(Ad, Bpd, maxdeg=7)):
+            assert float((got.cpu() - want).abs().max()) <= 1e-14 * scale
+
+
+def test_hybrid_iterations_on_the_card_match_the_cpu():
+    """Three hybrid CCSD iterations of each formulation (digitized
+    constants, digit GEMMs) on the card against the same on the CPU:
+    within 1e-10 of scale (the digit GEMMs are exact on both; the f64
+    einsums around them round in another order, which can move a last
+    digit)."""
+    import numpy as np
+
+    from afesp_tpu_torch.methods import ccsd_spatial as CSP
+    from afesp_tpu_torch.methods import ccsd_spinorb as CS
+
+    dev = _card()
+    eri, levels = _random_eri_mo(14)
+    out = {}
+    for d in ("cpu", dev):
+        e, lv = torch.as_tensor(eri, device=d), torch.as_tensor(levels, device=d)
+        v, D_ia, D_ijab, t1, t2, _, _, _ = CS.spinorb_cc_init(e, lv, 3)
+        consts = CS.presplit_consts(v)
+        sv, sD1, sD2, s1, s2, _, _ = CSP.spatial_cc_init(e, lv, 3)
+        sconsts = CSP.spatial_presplit(sv)
+        for _ in range(3):
+            t1, t2 = CS._iteration_core(t1, t2, v, D_ia, D_ijab, consts, paper_foo=False,
+                                        vvvv_split=True)
+            s1, s2 = CSP._iteration_core(s1, s2, sv, sD1, sD2, sconsts, vvvv_split=True)
+        out[str(d)] = [x.cpu().numpy() for x in (t1, t2, s1, s2)]
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        assert np.max(np.abs(got - want)) <= 1e-10 * np.abs(want).max()

@@ -14,11 +14,13 @@ It runs the JAX package on the CPU:
      `s.dat`, `t.dat`, `v.dat` and `geom.dat`; nothing is written into
      `data/` but the JSON below;
   3. runs the JAX driver (`afesp_tpu.driver.run_calculation`) there with
-     the committed `els.in` at `ccsd_precision = "f64"` (the port runs
-     f64; JAX's CPU "hybrid" runs digit GEMMs), with `--spinorb` also at
+     the committed `els.in` at `ccsd_precision = "f64"`, or, with
+     `--precision hybrid`, at "hybrid" (JAX's digit-GEMM CCSD: the
+     committed els.in unchanged), with `--spinorb` also at
      `calc_type = "CCSD(T)_spinorb"` (JAX holds the dimer's vvvv as spin
-     blocks by its 4e9-byte rule), and, with `--hybrid`, once more at the
-     committed "hybrid" as a cross-check;
+     blocks by its 4e9-byte rule), and, with `--hybrid` at f64, once
+     more at the committed "hybrid" as a cross-check (breakdown values
+     and iteration counts only);
   4. writes `expected_jax_cpu_crccsd_t_spatial.json` (or, with
      `--spinorb`, `expected_jax_cpu_ccsd_t_spinorb.json`) into that
      directory: the `els_in` string, the breakdown lines and every value
@@ -28,7 +30,12 @@ It runs the JAX package on the CPU:
      generator).  The sample is written as soon as the engine ends.  With
      `--spinorb` the JSON also holds E(T) of JAX's f64 spin-orbital tier
      on the converged amplitudes (`spinorb_triples`): the driver's own
-     CPU tier is the f32 "hybrid" one.
+     CPU tier is the f32 "hybrid" one.  With `--precision hybrid` the
+     file is named `..._hybrid.json`; for the spatial calc_type the
+     driver's triples call then runs its own tier (kept under
+     `triples_driver_default`) and then the f64 tier on the same hybrid
+     amplitudes, whose values the breakdown and `triples` hold: the
+     port's card runs CCSD at "hybrid" and its triples in f64.
 
 Walls on an 8-core CPU with 62 GB: the dimer's engine 349 s (258 s in a
 later run), its driver 128 s at f64 and 169 s at "hybrid"; `--spinorb`
@@ -36,8 +43,17 @@ driver 297 s and f64 (T) 598 s (about 17 GB of host memory); `--trimer`
 engine 1537 s and driver 1106 s, 1028 s of it CR-CCSD(T) (about 34 GB).
 `--eri-npy PATH` saves the engine's packed ERIs at PATH, or, where that
 file exists, reads them from it instead of running the engine.
+`--eager-ccsd` runs the CCSD solve op by op (see `run_driver`): the
+hybrid runs of the trimer and the spin-orbital dimer need it on a host
+with 62 GB.
 
-With `--pvtz` it writes instead, in about 40 s, the same ERI sample of
+With `--pvtz --precision hybrid` it writes, in a few minutes, the two
+hybrid gates of the committed H2O/cc-pVTZ inputs instead
+(`data/h2o-cc-pvtz-2.00_104.45/expected_jax_cpu_hybrid.json`,
+CCSD(T)_spinorb, and `expected_jax_cpu_crccsd_t_spatial_hybrid.json`;
+see `pvtz_hybrid`).
+
+With `--pvtz` alone it writes instead, in about 40 s, the same ERI sample of
 H2O/cc-pVTZ (`fixture-cc-pvtz` at the committed
 `data/h2o-cc-pvtz-2.00_104.45/geom.dat`) from the JAX engine as it is
 now, beside that directory's inputs as `expected_jax_cpu_eri_sample.json`,
@@ -49,6 +65,8 @@ differ by up to ~2e-9.
     JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py --spinorb [--eri-npy PATH]
     JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py --trimer [--eri-npy PATH]
     JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py --pvtz
+    JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py [--spinorb | --trimer | --pvtz] \
+        --precision hybrid [--eri-npy PATH] [--eager-ccsd]
 """
 
 from __future__ import annotations
@@ -105,28 +123,79 @@ def breakdown_of(text: str) -> tuple[list[str], dict]:
     return block, values
 
 
-def run_driver(wd: Path, els_in: str, spinorb: bool = False) -> dict:
+def run_driver(wd: Path, els_in: str, spinorb: bool = False,
+               f64_triples: bool = False, eager_ccsd: bool = False) -> dict:
     """The JAX driver on `wd`, with its HF and CC results caught on the
-    way (its RunResult keeps neither)."""
+    way (its RunResult keeps neither).  With `f64_triples` (spatial
+    only) the driver's triples call runs its own tier, whose values are
+    kept under `triples_driver_default`, and then the f64 tier on the
+    same amplitudes, whose values the driver reports: the breakdown is
+    then the CCSD of the els.in's precision with the f64 triples family.
+    With `eager_ccsd` the CCSD solve runs under jax.disable_jit(), op by
+    op, so each intermediate is freed when it is dropped: the whole-solve
+    program of the hybrid CCSD holds every digit-pair product of a
+    contraction at once and outgrew 62 GB of host memory at the trimer
+    and the spin-orbital dimer (the same arithmetic: on the 24-bf H2O
+    the two forms agree to 2e-14 Ha spatial, 2e-12 spin-orbital).  For
+    the restricted formulation it also drops what nothing reads after
+    its use: the AO integrals once MP2 has run, and the dense MO tensor
+    once the CC slices are cut from it (the trimer's eager run was
+    OOM-killed at 65 GB with both held through the digitizing)."""
     from afesp_tpu import driver
     from afesp_tpu.io.report import Reporter
+    from afesp_tpu.methods import ccsd_spatial as cs_mod
     from afesp_tpu.methods import hf as hf_mod
+    from afesp_tpu.methods import mp2 as mp2_mod
 
     (wd / "els.in").write_text(els_in)
     caught = {}
     cc_name = "do_ccsd_spinorb" if spinorb else "do_ccsd_spatial"
     do_rhf, do_ccsd = hf_mod.do_rhf, getattr(driver, cc_name)
+    do_t = driver.do_ccsd_t_spatial
+    do_mp2, cc_init = mp2_mod.do_mp2_spatial, cs_mod.spatial_cc_init
+
+    def mp2_then_free(sys_, ints, *a, **k):
+        out = do_mp2(sys_, ints, *a, **k)
+        ints.free_device_eri()
+        ints.eri = ints.eri_packed = None
+        return out
+
+    def cc_init_then_free(eri_mo, *a, **k):
+        out = cc_init(eri_mo, *a, **k)
+        eri_mo.delete()
+        return out
 
     def rhf(*a, **k):
         caught["hf"] = do_rhf(*a, **k)
         return caught["hf"]
 
     def ccsd(*a, **k):
-        caught["cc"] = do_ccsd(*a, **k)
+        if eager_ccsd:
+            import jax
+
+            with jax.disable_jit():
+                caught["cc"] = do_ccsd(*a, **k)
+        else:
+            caught["cc"] = do_ccsd(*a, **k)
         return caught["cc"]
+
+    def triples(sys_, cc, cfg, levels, rep, **k):
+        t0 = time.perf_counter()
+        caught["t_default"] = do_t(sys_, cc, cfg, levels, rep, **k)
+        caught["t_default_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        caught["t_f64"] = do_t(sys_, cc, cfg, levels, Reporter(stream=io.StringIO()),
+                               precision="f64")
+        caught["t_f64_s"] = time.perf_counter() - t0
+        return caught["t_f64"]
 
     hf_mod.do_rhf = rhf
     setattr(driver, cc_name, ccsd)
+    if f64_triples:
+        driver.do_ccsd_t_spatial = triples
+    if eager_ccsd and not spinorb:
+        mp2_mod.do_mp2_spatial = mp2_then_free
+        cs_mod.spatial_cc_init = cc_init_then_free
     try:
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -135,6 +204,8 @@ def run_driver(wd: Path, els_in: str, spinorb: bool = False) -> dict:
     finally:
         hf_mod.do_rhf = do_rhf
         setattr(driver, cc_name, do_ccsd)
+        driver.do_ccsd_t_spatial = do_t
+        mp2_mod.do_mp2_spatial, cs_mod.spatial_cc_init = do_mp2, cc_init
     block, values = breakdown_of(buf.getvalue())
     stage_walls = [ln.strip() for ln in buf.getvalue().splitlines()
                    if ln.lstrip().startswith("Time taken for")]
@@ -157,8 +228,16 @@ def run_driver(wd: Path, els_in: str, spinorb: bool = False) -> dict:
     if spinorb:
         return run | {"_cc": caught["cc"], "_res": res, "_hf": caught["hf"]}
     tr = res.triples
-    return run | {"triples_precision_used": tr.precision_used,
-                  "triples": {k: float(getattr(tr, k)) for k in TRIPLES_KEYS}}
+    run |= {"triples_precision_used": tr.precision_used,
+            "triples": {k: float(getattr(tr, k)) for k in TRIPLES_KEYS}}
+    if f64_triples:
+        td = caught["t_default"]
+        run["triples_driver_default"] = {
+            "precision_used": td.precision_used,
+            "triples": {k: float(getattr(td, k)) for k in TRIPLES_KEYS},
+            "wall_s": caught["t_default_s"]}
+        run["triples_f64_s"] = caught["t_f64_s"]
+    return run
 
 
 def eri_sample(packed: np.ndarray) -> dict:
@@ -206,6 +285,47 @@ def pvtz_sample() -> int:
     return 0
 
 
+def pvtz_hybrid(precision: str) -> int:
+    """The JAX driver on the committed H2O/cc-pVTZ inputs (s/t/v/geom.dat
+    of data/h2o-cc-pvtz-2.00_104.45 and data/h2o-cc-pvtz/eri.dat) at
+    `precision`: CCSD(T)_spinorb from that directory's els.in into
+    expected_jax_cpu_<precision>.json (with JAX's f64 E(T) on its own
+    amplitudes, `spinorb_triples`), and CRCCSD(T)_spatial from the
+    els_in of expected_jax_cpu_crccsd_t_spatial.json into
+    expected_jax_cpu_crccsd_t_spatial_<precision>.json (its triples at
+    f64, the driver's own tier under `triples_driver_default`)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    spatial = json.loads((PVTZ / "expected_jax_cpu_crccsd_t_spatial.json").read_text())
+    cases = ((f"expected_jax_cpu_{precision}.json", (PVTZ / "els.in").read_text(), True),
+             (f"expected_jax_cpu_crccsd_t_spatial_{precision}.json", spatial["els_in"], False))
+    for name, els_in, spinorb in cases:
+        old = 'ccsd_precision = "f64"'
+        if old not in els_in:
+            raise SystemExit(f"{name}: the els.in has no line {old!r}")
+        els_in = els_in.replace(old, f'ccsd_precision = "{precision}"')
+        with tempfile.TemporaryDirectory() as tmp:
+            wd = Path(tmp)
+            for f in ("s.dat", "t.dat", "v.dat", "geom.dat"):
+                shutil.copy(PVTZ / f, wd / f)
+            (wd / "eri.dat").symlink_to(PVTZ_ERI)
+            run = run_driver(wd, els_in, spinorb, f64_triples=not spinorb)
+            if spinorb:
+                run["spinorb_triples"] = spinorb_triples_f64(run)
+        out = {
+            "source": f"tools/make_torch_dimer_fixture.py --pvtz --precision {precision}",
+            "jax_version": jax.__version__,
+            "jax_backend": jax.default_backend(),
+            "inputs": {"dir": str(PVTZ.relative_to(REPO)),
+                       "eri": str(PVTZ_ERI.relative_to(REPO))},
+            "els_in": els_in,
+        } | run
+        out["walls_s"] = {f"driver_{precision}": out.pop("wall_s")}
+        write(PVTZ / name, out)
+    return 0
+
+
 def engine_eri(d: Path, eri_npy: Path | None) -> tuple[np.ndarray, int, float | None]:
     """The packed ERIs of `d`/geom.dat in cc-pVTZ from the JAX engine,
     or those of `eri_npy` when that file exists (written by an earlier
@@ -246,8 +366,11 @@ def spinorb_triples_f64(run: dict) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
+    precision = args[args.index("--precision") + 1] if "--precision" in args else "f64"
+    if precision not in ("f64", "hybrid"):
+        raise SystemExit(f"--precision {precision!r}: f64 or hybrid")
     if "--pvtz" in args:
-        return pvtz_sample()
+        return pvtz_hybrid(precision) if precision != "f64" else pvtz_sample()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -257,11 +380,14 @@ def main() -> int:
     spinorb = "--spinorb" in args
     if spinorb:
         out_path = DIMER / "expected_jax_cpu_ccsd_t_spinorb.json"
+    if precision != "f64":
+        out_path = out_path.with_name(f"{out_path.stem}_{precision}.json")
     eri_npy = Path(args[args.index("--eri-npy") + 1]) if "--eri-npy" in args else None
     packed, nbf, eri_s = engine_eri(d, eri_npy)
     out = {
         "source": "tools/make_torch_dimer_fixture.py " + " ".join(
-            a for a in args if a in ("--trimer", "--spinorb", "--hybrid")),
+            a for a in args if a in ("--trimer", "--spinorb", "--hybrid", "--eager-ccsd"))
+        + (f" --precision {precision}" if precision != "f64" else ""),
         "jax_version": jax.__version__,
         "jax_backend": jax.default_backend(),
         "inputs": {"dir": str(d.relative_to(REPO)),
@@ -278,16 +404,18 @@ def main() -> int:
             shutil.copy(d / f, wd / f)
         np.save(wd / "eri.npy", packed)
         del packed
-        els_in = els_in_at(d, "f64", spinorb)
-        run = run_driver(wd, els_in, spinorb)
+        els_in = els_in_at(d, precision, spinorb)
+        run = run_driver(wd, els_in, spinorb,
+                         f64_triples=precision != "f64" and not spinorb,
+                         eager_ccsd="--eager-ccsd" in args)
         print(json.dumps({k: run[k] for k in ("scf_iterations", "cc_iterations",
                                               "wall_s")}), flush=True)
         if spinorb:
             run["spinorb_triples"] = spinorb_triples_f64(run)
         out |= {"els_in": els_in} | run
-        out["walls_s"]["driver_f64"] = out.pop("wall_s")
+        out["walls_s"][f"driver_{precision}"] = out.pop("wall_s")
         write(out_path, out)
-        if "--hybrid" in args:
+        if "--hybrid" in args and precision == "f64":
             hyb = run_driver(wd, els_in_at(d, "hybrid", spinorb), spinorb)
             out["hybrid_cross_check"] = {
                 k: hyb[k] for k in ("breakdown_values", "scf_iterations",
