@@ -77,6 +77,7 @@ def from_jax(*, device, sys_=None, ints=None, hf=None, slices=None, cc=None) -> 
             iterations=int(cc.iterations), slices=out["slices"],
             t1_prev=None if cc.t1_prev is None else tensor(cc.t1_prev),
             t2_prev=None if cc.t2_prev is None else tensor(cc.t2_prev),
+            cr_vvvv_term=None if cc.cr_vvvv_term is None else tensor(cc.cr_vvvv_term),
         )
     elif cc is not None:
         out["cc"] = CCSDSpinorbResult(

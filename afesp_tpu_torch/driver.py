@@ -6,6 +6,11 @@ Port of `afesp_tpu/driver.py:28-243` (`RunResult`, `run_calculation`,
   restricted:   RHF -> MP2_spatial -> CCSD_spatial -> (T)_spatial family
   spin-orbital: RHF -> MP2_spatial -> CCSD_spinorb -> (T)_spinorb
 
+Under AFESP_FORCE_STREAM=1 the restricted chain runs the streaming tier
+(the MP2 stage hands CCSD its slices and vvvv limbs, no dense MO
+tensor); the spin-orbital CCSD needs the dense tensor and is refused
+there with the JAX driver's ValueError.
+
 with the reference's timing lines and final energy-breakdown table
 (labels are scraped by the binding-curve wrapper, so they are API).
 The JAX compile cache, warmup and profiler are not ported.  The device
@@ -112,7 +117,9 @@ def run_calculation(
 
         if cfg.wants_ccsd and cfg.restricted:
             t_cc = time.perf_counter()
-            cc = do_ccsd_spatial(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev)
+            cc = do_ccsd_spatial(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
+                                 slices=mp2.slices, vvvv_B=mp2.vvvv_B)
+            mp2.vvvv_B = None  # the limbs' last reader was the CC stage
             rep.stage_time(
                 "Time taken for restricted CCSD:", time.perf_counter() - t_cc
             )
@@ -126,6 +133,13 @@ def run_calculation(
                 res.triples = tr
                 res.e_highest = tr.e_highest
         elif cfg.wants_ccsd:
+            if mp2.eri_mo is None:
+                raise ValueError(
+                    "spin-orbital CCSD needs the dense MO tensor; the"
+                    f" streaming tier (nbasis >= {mp2_mod.STREAM_NBASIS})"
+                    " currently serves the spatial formulation only —"
+                    " use a *_spatial calc_type at this scale"
+                )
             t_cc = time.perf_counter()
             cc = do_ccsd_spinorb(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev)
             rep.stage_time(

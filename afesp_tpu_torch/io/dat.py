@@ -46,8 +46,9 @@ class System:
 
 @dataclasses.dataclass
 class IntStore:
-    """AO integral store (integrals.f90:24-34): host arrays, and one
-    cached device copy of the dense ERI (`eri_on_device`)."""
+    """AO integral store (integrals.f90:24-34): host arrays, one cached
+    device copy of the dense ERI (`eri_on_device`) and, on the
+    streaming tier, one of the packed store (`packed_on_device`)."""
 
     e_nuc: float = 0.0
     nbasis: int = 0
@@ -58,6 +59,18 @@ class IntStore:
     eri: np.ndarray | None = None  # dense (n,n,n,n) chemist (ij|kl)
     eri_packed: np.ndarray | None = None  # 8-fold store, reference eri_ind order
     _eri_dev: torch.Tensor | None = None  # the one device copy (eri_on_device)
+    _packed_dev: torch.Tensor | None = None  # the streaming tier's (packed_on_device)
+
+    def _upload_packed(self, dev: torch.device) -> torch.Tensor:
+        """The packed store on `dev`: the one upload both device forms
+        are made from (only the packed elements cross PCIe)."""
+        if self._packed_dev is not None and self._packed_dev.device == dev:
+            return self._packed_dev
+        if self.eri_packed is not None:
+            return torch.as_tensor(self.eri_packed, dtype=torch.float64, device=dev)
+        from ..ops.packed_eri import pack_eri
+
+        return pack_eri(torch.as_tensor(self.eri, dtype=torch.float64, device=dev))
 
     def eri_on_device(self, device: str | torch.device) -> torch.Tensor:
         """The dense ERI on `device`, made once and cached, as the JAX
@@ -69,8 +82,7 @@ class IntStore:
         dev = torch.device(device)
         if self._eri_dev is None or self._eri_dev.device != dev:
             if self.eri_packed is not None and (dev.type != "cpu" or self.eri is None):
-                packed = torch.as_tensor(self.eri_packed, dtype=torch.float64, device=dev)
-                self._eri_dev = unpack_eri(packed, self.nbasis)
+                self._eri_dev = unpack_eri(self._upload_packed(dev), self.nbasis)
             else:
                 self._eri_dev = torch.as_tensor(self.eri, dtype=torch.float64, device=dev)
         return self._eri_dev
@@ -79,6 +91,22 @@ class IntStore:
         """Drop the cached device ERI (after the MP2 transform nothing
         reads it; at 116 bf this frees 1.45 GB for the CC stages)."""
         self._eri_dev = None
+
+    def packed_on_device(self, device: str | torch.device) -> torch.Tensor:
+        """The 8-fold packed store on `device`, with no unpack, made once
+        and cached (`afesp_tpu/io/dat.py:94`): the only resident AO-ERI
+        form of the streaming tier, where the dense tensor (7.3 GB at
+        174 bf) is never built.  The stream Fock build and the sliced
+        MO transform (`methods/mo_slices.py`) both read it."""
+        dev = torch.device(device)
+        if self._packed_dev is None or self._packed_dev.device != dev:
+            self._packed_dev = self._upload_packed(dev)
+        return self._packed_dev
+
+    def free_device_packed(self) -> None:
+        """Drop the cached device packed store (the sliced transform
+        frees it once its row table supersedes it)."""
+        self._packed_dev = None
 
 
 def _parse_numeric_table(path: Path, ncols: int) -> np.ndarray:

@@ -5,7 +5,9 @@ Port of `afesp_tpu/methods/ccsd_spatial.py` (`Slices`, `CCSDResult`,
 with their f64 and digit-GEMM ("hybrid") routes, `SpatialHybridConsts`,
 `_DIG_CONST_SPECS`/`_DIG_CONST_SPECS_B`/`_DIG_L`, `_build_digs`,
 `spatial_presplit`, `get_spatial_solver`, `cc_energy_restricted`,
-`spatial_cc_init` and `do_ccsd_spatial` on the dense `eri_mo` path).
+`spatial_cc_init` and `do_ccsd_spatial`), and its streaming-slices tier
+(`spatial_presplit_ext`, `ccsd_spatial_solver_ext`,
+`spatial_cc_init_slices`, `_cr_vvvv_term_from_B`).
 The equations are the reference's debug twin routines
 (update_restricted_intermediates_debug ccsd.f90:1314-1458,
 update_amplitudes_restricted_debug 1460-1536, update_cc_energy
@@ -19,9 +21,13 @@ hybrid iteration (its rule, JAX `:618-623`): every contraction with a
 slice-sized operand is an exact digit GEMM (`ops/exact_gemm`), the
 loop-constant slice sides digitized once per solve (`spatial_presplit`,
 through the solver's precompute hook); `precision_used` says which ran.
-Not ported yet, and refused with "not ported yet": the streaming-slices
-tier (no dense MO tensor, v_vvvv as digit limbs), its
-`spatial_presplit_ext` and `_cr_vvvv_term_from_B`, and the device mesh.
+
+On the streaming tier (`eri_mo` None) the slices come from the sliced
+transform and v_vvvv exists only as per-chunk-scaled int8 limbs
+(`vvvv_B`): the solve contracts c_oovv against them, the CR-CC chain's
+one v_vvvv term is computed from them once the solve ends
+(`cr_vvvv_term`), and ccsd_precision "f64" is refused, as in the JAX
+package.  The device mesh is not ported.
 
 DIIS follows ccsd.f90:38-67 through the port's `ops/cc_step`; the state
 keeps the amplitudes that fed the final iteration (`t1_prev`/`t2_prev`),
@@ -41,8 +47,8 @@ from ..config import Config
 from ..device import F64, default_device
 from ..io import dat
 from ..io.report import Reporter
-from ..ops.cc_step import init_cc_state, make_cc_solver
-from ..ops.exact_gemm import exact_einsum, prechunk_op
+from ..ops.cc_step import init_cc_state, make_cc_solver, make_cc_solver_pre
+from ..ops.exact_gemm import exact_einsum, gemm_B_pre_streamed, prechunk_op
 from ..ops.split_gemm import split_einsum
 from .hf import HFResult
 
@@ -60,7 +66,7 @@ class Slices:
     v_vvov: torch.Tensor  # (v,v,o,v)
     v_oovo: torch.Tensor  # (o,o,v,o)
     v_oooo: torch.Tensor  # (o,o,o,o)
-    v_vvvv: torch.Tensor  # (v,v,v,v)
+    v_vvvv: torch.Tensor | None  # (v,v,v,v); None on the streaming tier
 
 
 @dataclasses.dataclass
@@ -81,6 +87,10 @@ class CCSDResult:
     energies: list[float] = dataclasses.field(default_factory=list)  # per iteration
     # the CCSD arithmetic that ran: "f64", or "hybrid" (the digit GEMMs)
     precision_used: str = "f64"
+    # streaming tier only: the CR chain's one v_vvvv contraction
+    # es("ecba,ie->ciab", v_vvvv, t1) (ccsd.f90:2513), computed from the
+    # digit limbs when the solve ends (`_cr_vvvv_term_from_B`)
+    cr_vvvv_term: torch.Tensor | None = None
 
 
 def make_slices(eri_mo: torch.Tensor, nocc: int) -> Slices:
@@ -213,11 +223,12 @@ class SpatialHybridConsts:
     """Loop-constant operand preparations of the hybrid iteration, built
     once per solve (the solver's precompute hook): the digitized forms
     (ops/exact_gemm.prechunk_op) of every constant-slice side of the
-    digit-GEMM contractions, keyed by spec.  (The JAX package's `vvvv_B`,
-    v_vvvv as per-chunk-scaled limbs only, belongs to the streaming tier,
-    which is not ported yet.)"""
+    digit-GEMM contractions, keyed by spec, and on the streaming tier
+    v_vvvv as the transform's per-chunk-scaled limbs (`vvvv_B`, from
+    prechunk_B_chunkscaled of the (ef, ab) matricisation)."""
 
     digs: dict  # spec -> prechunk_op output
+    vvvv_B: tuple | None = None
 
 
 # Contractions of the hybrid iteration whose FIRST operand is a
@@ -275,10 +286,11 @@ _DIG_L = {
 }
 
 
-def _build_digs(v: Slices) -> dict:
+def _build_digs(v: Slices, skip_vvvv: bool = False) -> dict:
     digs = {
         spec: prechunk_op(spec, "A", getattr(v, name), L=_DIG_L.get(spec, 6))
         for spec, name in _DIG_CONST_SPECS
+        if not (skip_vvvv and name == "v_vvvv")
     }
     digs.update({
         spec: prechunk_op(spec, "B", getattr(v, name), L=_DIG_L.get(spec, 6))
@@ -289,6 +301,13 @@ def _build_digs(v: Slices) -> dict:
 
 def spatial_presplit(v: Slices, kc: int = 64) -> SpatialHybridConsts:
     return SpatialHybridConsts(digs=_build_digs(v))
+
+
+def spatial_presplit_ext(v: Slices, vvvv_B) -> SpatialHybridConsts:
+    """The streaming tier's consts: v.v_vvvv is None and its digit form
+    arrives prebuilt from the transform; every other slice is digitized
+    here as usual."""
+    return SpatialHybridConsts(digs=_build_digs(v, skip_vvvv=True), vvvv_B=vvvv_B)
 
 
 def _iteration_core(t1, t2, v: Slices, D_ia, D_ijab, consts: SpatialHybridConsts | None = None,
@@ -320,6 +339,13 @@ def _iteration_core(t1, t2, v: Slices, D_ia, D_ijab, consts: SpatialHybridConsts
     # ---------------- T2 (Eq. 44; ccsd.f90:1497-1526) ----------------
     if vvvv_split and consts is None:
         vvvv_term = 0.5 * split_einsum("efab,ijef->ijab", v.v_vvvv, c_oovv)
+    elif consts is not None and consts.vvvv_B is not None:
+        # streaming tier: v_vvvv exists only as the transform's limbs
+        nv = t2.shape[-1]
+        vvvv_term = 0.5 * exact_einsum(
+            "ijef,efab->ijab", c_oovv, None, L=6, maxdeg=7,
+            B_pre=consts.vvvv_B, B_shape=(nv, nv, nv, nv),
+        )
     else:
         vvvv_term = 0.5 * ce("efab,ijef->ijab", v.v_vvvv, c_oovv)
     # t1 * I_vovv' (Eq. 44 term 5), reassociated through the t1
@@ -365,19 +391,46 @@ ccsd_spatial_solver_hybrid = make_cc_solver(partial(_iteration_core, vvvv_split=
                                             cc_energy_restricted, precompute=spatial_presplit)
 
 
+# streaming tier: v_vvvv arrives as prebuilt digit limbs (the solve's `pre`)
+ccsd_spatial_solver_ext = make_cc_solver_pre(partial(_iteration_core, vvvv_split=True),
+                                             cc_energy_restricted,
+                                             precompute=spatial_presplit_ext)
+
+
 def get_spatial_solver(vvvv_split: bool = False):
     """The whole-solve loop for a precision mode (JAX `:496`)."""
     return ccsd_spatial_solver_hybrid if vvvv_split else ccsd_spatial_solver
 
 
-def spatial_cc_init(eri_mo: torch.Tensor, levels: torch.Tensor, nocc: int):
-    """Slices, denominators, the MP1 guess and its energy."""
-    v = make_slices(eri_mo, nocc)
+def spatial_cc_init_slices(v: Slices, levels: torch.Tensor, nocc: int):
+    """Denominators, the MP1 guess and its energy from built slices (the
+    streaming transform's, where no dense MO tensor exists)."""
     D_ia, D_ijab = denominators(levels, nocc)
     t1 = torch.zeros_like(D_ia)
     t2 = v.v_oovv / D_ijab  # MP1 (ccsd.f90:521)
     e0, r0 = cc_energy_restricted(t1, t2, torch.zeros_like(t2), v.v_oovv)
-    return v, D_ia, D_ijab, t1, t2, e0, r0
+    return D_ia, D_ijab, t1, t2, e0, r0
+
+
+def spatial_cc_init(eri_mo: torch.Tensor, levels: torch.Tensor, nocc: int):
+    """Slices, denominators, the MP1 guess and its energy."""
+    v = make_slices(eri_mo, nocc)
+    return (v, *spatial_cc_init_slices(v, levels, nocc))
+
+
+def _cr_vvvv_term_from_B(t1: torch.Tensor, vvvv_B, *, nv: int) -> torch.Tensor:
+    """es("ecba,ie->ciab", v_vvvv, t1) from the digit limbs of v_vvvv,
+    whose matricisation has rows (e, c) and columns (b, a) in this
+    term's index roles.  The contraction over e alone is recast as one
+    (o*v, v^2) x (v^2, v^2) digit GEMM with the Kronecker left operand
+    A[(i,c), (e,c')] = t1[i,e] delta_cc' (exact per digit plane: t1 is
+    digitized from f64), streamed over the limbs' K chunks
+    (`gemm_B_pre_streamed`, maxdeg=6).  Returns (c, i, a, b) f64."""
+    o = t1.shape[0]
+    eye = torch.eye(nv, dtype=t1.dtype, device=t1.device)
+    A = (t1[:, None, :, None] * eye[None, :, None, :]).reshape(o * nv, nv * nv)
+    out = gemm_B_pre_streamed(A, vvvv_B, maxdeg=6)
+    return out.reshape(o, nv, nv, nv).permute(1, 0, 3, 2)
 
 
 def do_ccsd_spatial(
@@ -388,14 +441,12 @@ def do_ccsd_spatial(
     rep: Reporter | None = None,
     workdir: str | Path = ".",
     device: str | torch.device | None = None,
+    slices: Slices | None = None,
+    vvvv_B=None,
 ) -> CCSDResult:
-    """Restricted CCSD on the dense MO tensor `eri_mo` (do_ccsd_spatial,
-    ccsd.f90:279-402)."""
-    if eri_mo is None:
-        raise NotImplementedError(
-            "restricted CCSD without a dense MO tensor (the streaming-slices"
-            " tier) is not ported yet"
-        )
+    """Restricted CCSD (do_ccsd_spatial, ccsd.f90:279-402) on the dense
+    MO tensor `eri_mo`, or, with `eri_mo` None, on the streaming tier's
+    `slices` with v_vvvv as its digit limbs `vvvv_B`."""
     dev = default_device(device)
     rep = rep or Reporter()
     rep.section("CCSD")
@@ -406,9 +457,21 @@ def do_ccsd_spatial(
     rep.write(" Forming ERI slices...")
 
     nocc = sys_.nocc
-    eri_mo = eri_mo.to(device=dev, dtype=F64)
     levels = torch.as_tensor(hf.levels, dtype=F64, device=dev)
-    v, D_ia, D_ijab, t1, t2, e0, r0 = spatial_cc_init(eri_mo, levels, nocc)
+    external = eri_mo is None
+    if external:
+        if slices is None or vvvv_B is None:
+            raise AssertionError("the streaming tier needs the slices and the vvvv limbs")
+        if cfg.ccsd_precision not in ("hybrid", "pallas", "fused"):
+            raise AssertionError(
+                "the streaming-slices tier stores v_vvvv as digit limbs; "
+                "all-f64 ccsd_precision is not available above the dense cutoff"
+            )
+        v = slices
+        D_ia, D_ijab, t1, t2, e0, r0 = spatial_cc_init_slices(v, levels, nocc)
+    else:
+        eri_mo = eri_mo.to(device=dev, dtype=F64)
+        v, D_ia, D_ijab, t1, t2, e0, r0 = spatial_cc_init(eri_mo, levels, nocc)
 
     rep.write(" Forming initial amplitude guesses...")
     amp_in = Path(workdir) / "amplitudes_in.npz"
@@ -423,7 +486,8 @@ def do_ccsd_spatial(
     # "pallas" and "fused" change only the triples tier; the CC solve
     # runs the hybrid digit-GEMM iteration for all three (JAX `:618-623`)
     vvvv_split = cfg.ccsd_precision in ("hybrid", "pallas", "fused")
-    solver = get_spatial_solver(vvvv_split=vvvv_split)
+    solver = (partial(ccsd_spatial_solver_ext, pre=vvvv_B) if external
+              else get_spatial_solver(vvvv_split=vvvv_split))
 
     rep.write(f" Time taken: {time.perf_counter() - t_stage:8.6f} s")
     rep.write("")
@@ -466,6 +530,12 @@ def do_ccsd_spatial(
                 " CCSD result might be unreliable!"
             )
 
+    cr_term = None
+    if external and cfg.ccsd_t_comp_renorm:
+        # the CR chain's only v_vvvv contraction, from the limbs while
+        # they are at hand (JAX `:738-760`)
+        cr_term = _cr_vvvv_term_from_B(t1_out, vvvv_B, nv=sys_.nvirt)
+
     return CCSDResult(
         e_ccsd=energy,
         t1=t1_out,
@@ -478,4 +548,5 @@ def do_ccsd_spatial(
         t2_prev=state.t2_in,
         energies=energies,
         precision_used="hybrid" if vvvv_split else "f64",
+        cr_vvvv_term=cr_term,
     )

@@ -15,9 +15,21 @@ trajectories match the reference to roundoff:
 The eigensolve and DIIS stay in host LAPACK/numpy as in the JAX host
 loop (at the reference's scale SCF is latency-bound); only the O(n^4)
 Fock build runs on the device, against the one device copy of the ERI
-that MP2 shares (`IntStore.eri_on_device`).  The TPU
-tiers of the JAX package (the >=100-bf device prelude, the split and
-stream Fock builds) are not ported.
+that MP2 shares (`IntStore.eri_on_device`).
+
+The streaming tier (`afesp_tpu/methods/hf.py:143-413,477-549`), taken
+under `AFESP_FORCE_STREAM=1` at nbasis >= `_TPU_FOCK_NBASIS`, as in the
+JAX package off a TPU: the J and K matricisations are gathered from the
+packed store on the device and digitized once (`_fock_stream_consts`),
+every Fock build is two exact digit GEMVs (`_fock_build_stream`), and a
+device prelude (`_scf_prelude_device`: canonical purification, no
+eigensolve, and Pulay DIIS on the device) gives the host loop its
+starting Fock matrix.  The JAX prelude is one `while_loop` dispatch
+(for the TPU's remote link); the port's is a Python loop over device
+tensors with one readback per iteration, and one per block of
+purification steps.  The split Fock build (`_fock_split_consts`,
+`_fock_build_split`) is reachable in the JAX package on a TPU backend
+only, and is not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +45,16 @@ from ..config import Config
 from ..device import F64, default_device
 from ..io import dat
 from ..io.report import Reporter
+from ..ops.cc_step import gauss_solve
+from ..ops.exact_gemm import digitize_A, exact_gemm
+from ..ops.packed_eri import pair_index
+
+# Basis size from which the JAX package builds the Fock matrix on the
+# device (`afesp_tpu/methods/hf.py:56`); off a TPU it does so only on the
+# streaming tier, under AFESP_FORCE_STREAM=1, and so does the port.
+_TPU_FOCK_NBASIS = 100
+# purification steps run between two readbacks of their stop test
+_PM_BLOCK = 8
 
 
 @dataclasses.dataclass
@@ -53,6 +75,197 @@ def fock_build(H: torch.Tensor, eri: torch.Tensor, D: torch.Tensor) -> torch.Ten
     J = (eri.reshape(n * n, n * n) @ D.reshape(-1)).reshape(n, n)
     K = torch.einsum("ikjl,kl->ij", eri, D)
     return H + 2.0 * J - K
+
+
+def _tri_rows(npair: int, ncols: int, budget_elems: float = 1.6e8) -> int:
+    """Largest divisor of npair whose (rows, ncols) f64 gather block fits
+    the budget: the stream consts are gathered and digitized in row
+    blocks of this size."""
+    cap = max(1, int(budget_elems / ncols))
+    return max(d for d in range(1, npair + 1) if npair % d == 0 and d <= cap)
+
+
+def _fock_stream_consts(packed: torch.Tensor, tk: torch.Tensor, tl: torch.Tensor, *,
+                        n: int, L: int = 6):
+    """The stream tier's Fock constants, gathered from the packed store:
+
+      J: the symmetric pair matrix P2[p, q] = (ij|kl) over tri pairs
+         p = (i>=j), q = (k>=l), n^4/4 elements;
+      K: the tri rows p = (i>=j) of the exchange matricisation (ik|jl)
+         over all columns (k, l), n^4/2 elements (F is symmetric, so
+         the tri rows suffice; the build scatters them back).
+
+    Each is digitized to L int8 limbs with per-row scales (L=6: ~2^-42
+    of scale), row block by row block (`_tri_rows`), which moves no
+    digit: the scales are per row.  Returns ((J digits, J scales),
+    (K digits, K scales)), the digits equal to the JAX package's."""
+    npair = n * (n + 1) // 2
+    dev = packed.device
+    q = torch.arange(npair, device=dev)
+    kk = torch.arange(n, device=dev)
+
+    def digitized(ncols: int, block_values):
+        digits = [torch.empty((npair, ncols), dtype=torch.int8, device=dev) for _ in range(L)]
+        scales = torch.empty((npair, 1), dtype=packed.dtype, device=dev)
+        b = _tri_rows(npair, ncols)
+        for p0 in range(0, npair, b):
+            rows = torch.arange(p0, p0 + b, device=dev)
+            d, sc = digitize_A(block_values(rows), L)
+            for dst, src in zip(digits, d):
+                dst[p0:p0 + b] = src
+            scales[p0:p0 + b] = sc
+        return digits, scales
+
+    J_dig = digitized(npair, lambda rows: packed[pair_index(rows[:, None], q[None, :])])
+
+    def k_block(rows):
+        ik = pair_index(tk[rows][:, None], kk[None, :])  # (b, n) pair(i,k)
+        jl = pair_index(tl[rows][:, None], kk[None, :])  # (b, n) pair(j,l)
+        return packed[pair_index(ik[:, :, None], jl[:, None, :])].reshape(rows.numel(), n * n)
+
+    return J_dig, digitized(n * n, k_block)
+
+
+def _fock_build_stream(H, D, consts, tk, tl, iu=None, packed_f32: bool = False):
+    """F = Hcore + 2J - K from the stream consts: J as a tri-pair GEMV
+    against the symmetry-weighted density (off-diagonal pairs count
+    twice), K as a tri-row GEMV over the whole density, both exact digit
+    GEMMs; the symmetric matrices are scattered back from their
+    triangles.  With `iu` (upper-triangle index pair) only the packed
+    upper triangle is returned, in f32 with `packed_f32` (the JAX
+    package's early far-from-convergence iterations)."""
+    n = H.shape[0]
+    J_dig, K_dig = consts
+    w = torch.where(tk == tl, 1.0, 2.0).to(D.dtype) * D[tk, tl]
+    Jt = exact_gemm(B=w[:, None], A_dig=J_dig)[:, 0]
+    Kt = exact_gemm(B=D.reshape(-1, 1), A_dig=K_dig)[:, 0]
+    J = H.new_zeros((n, n))
+    J[tk, tl] = Jt
+    J[tl, tk] = Jt
+    K = H.new_zeros((n, n))
+    K[tk, tl] = Kt
+    K[tl, tk] = Kt
+    F = H + 2.0 * J - K
+    if iu is None:
+        return F
+    Fp = F[iu[0], iu[1]]
+    return Fp.to(torch.float32) if packed_f32 else Fp
+
+
+def _pm_step(D: torch.Tensor):
+    """One trace-preserving Palser-Manolopoulos step; returns the new
+    density and |tr(D - D^2)|, the loop's convergence measure."""
+    D2 = D @ D
+    D3 = D2 @ D
+    t_hi = torch.trace(D2 - D3)
+    t_lo = torch.trace(D - D2)
+    cn = t_hi / torch.where(t_lo.abs() > 1e-300, t_lo, torch.full_like(t_lo, 1e-300))
+    up_lo = ((1.0 - 2.0 * cn) * D + (1.0 + cn) * D2 - D3) / (1.0 - cn)
+    up_hi = ((1.0 + cn) * D2 - D3) / cn
+    return torch.where(cn <= 0.5, up_lo, up_hi), t_lo.abs()
+
+
+def purify_density(Fp: torch.Tensor, *, nocc: int, tol: float = 1e-14, maxiter: int = 100):
+    """Occupied-subspace projector of a symmetric (orthogonal-basis) Fock
+    matrix by Palser-Manolopoulos canonical purification (PM98), with no
+    eigensolve (`afesp_tpu/methods/hf.py:232`).  D0 = (lam/m)(mu I - Fp)
+    + (nocc/m) I with Gershgorin bounds has its spectrum in [0, 1] and
+    trace nocc; the cubic steps polarise it to {0, 1}, and two trailing
+    McWeeny steps finish to f64 where PM's ratio stalls near sqrt(eps).
+
+    The JAX loop tests |tr(D - D^2)| > tol*m after every step; here the
+    steps run in blocks of `_PM_BLOCK` with one readback of their measures,
+    and the density kept is the one of the step at which the JAX loop
+    stops.  Returns (D, steps)."""
+    m = Fp.shape[0]
+    diag = torch.diagonal(Fp)
+    r = Fp.abs().sum(1) - diag.abs()
+    fmin = (diag - r).min()
+    fmax = (diag + r).max()
+    mu = torch.trace(Fp) / m
+    # a (near-)uniform spectrum would make D0 NaN; any positive lam works
+    lam = torch.minimum(nocc / torch.clamp(fmax - mu, min=1e-300),
+                        (m - nocc) / torch.clamp(mu - fmin, min=1e-300))
+    eye = torch.eye(m, dtype=Fp.dtype, device=Fp.device)
+    D = (lam / m) * (mu * eye - Fp) + (nocc / m) * eye
+    steps = 0
+    while steps < maxiter:
+        run = []
+        Dc = D
+        for _ in range(min(_PM_BLOCK, maxiter - steps)):
+            Dc, t_lo = _pm_step(Dc)
+            run.append((Dc, t_lo))
+        going = (torch.stack([t for _, t in run]) > tol * m).tolist()
+        for (Dk, _), more in zip(run, going):
+            D = Dk
+            steps += 1
+            if not more:
+                break
+        if not more:
+            break
+    for _ in range(2):
+        D2 = D @ D
+        D = 3.0 * D2 - 2.0 * D2 @ D
+    return D, steps
+
+
+def _scf_prelude_device(H, S, X, consts, iu, tk, tl, *, nocc: int, nerr: int, maxiter: int):
+    """The device SCF prelude of the streaming tier (the `stream=True`
+    branch of `afesp_tpu/methods/hf.py:296`): F' = X^T F X -> purified
+    density -> exact-GEMM Fock -> Pulay DIIS on the device, until the
+    density change is below 1e-8 and the energy change below 1e-7, or
+    `maxiter` iterations.  The Fock matrix with the smallest density
+    change is kept: once the DIIS system turns singular the bare
+    Roothaan map can drift away.  One readback per iteration (its stop
+    test).  Returns (packed upper triangle of that Fock matrix,
+    iterations run); the host loop of `do_rhf` starts from it."""
+    n = H.shape[0]
+    F = H
+    D_old = torch.zeros_like(H)
+    E_old = H.new_zeros(())
+    Fh = H.new_zeros((nerr, n * n))
+    Eh = H.new_zeros((nerr, n * n))
+    gram = H.new_zeros((nerr, nerr))
+    eye = torch.eye(nerr, dtype=H.dtype, device=H.device)
+    slot, nact = -1, 0
+    F_best, best = H, H.new_tensor(float("inf"))
+    it = 0
+    while it < maxiter:
+        Fp = X.T @ F @ X
+        D_orth, _ = purify_density(Fp, nocc=nocc)
+        D = X @ D_orth @ X.T
+        E = torch.sum(D * (H + F))
+        rms = torch.sqrt(torch.sum((D - D_old) ** 2))
+        # rms scores the Fock this iteration entered with; keep the best
+        better = rms < best
+        F_best = torch.where(better, F, F_best)
+        best = torch.where(better, rms, best)
+        done = (rms < 1e-8) & ((E - E_old).abs() < 1e-7)
+        Fn = _fock_build_stream(H, D, consts, tk, tl)
+        err = (Fn @ D @ S - S @ D @ Fn).reshape(-1)
+        slot = (slot + 1) % nerr
+        nact = min(nact + 1, nerr)
+        Fh[slot] = Fn.reshape(-1)
+        Eh[slot] = err
+        row = torch.sum(Eh * err[None, :], dim=1)
+        gram[slot, :] = row
+        gram[:, slot] = row
+        active = torch.arange(nerr, device=H.device) < nact
+        M = H.new_zeros((nerr + 1, nerr + 1))
+        M[:nerr, :nerr] = torch.where(active[:, None] & active[None, :], gram, eye)
+        border = torch.where(active, -1.0, 0.0).to(H.dtype)
+        M[nerr, :nerr] = border
+        M[:nerr, nerr] = border
+        rhs = H.new_zeros(nerr + 1)
+        rhs[nerr] = -1.0
+        c, ok = gauss_solve(M, rhs)
+        if nact >= 2:
+            Fn = torch.where(ok, torch.sum(c[:nerr, None] * Fh, dim=0).reshape(n, n), Fn)
+        F, D_old, E_old = Fn, D, E
+        it += 1
+        if bool(done):
+            break
+    return F_best[iu[0], iu[1]], it
 
 
 class _DiisHost:
@@ -95,6 +308,15 @@ def symmetric_orthogonaliser_np(S: np.ndarray) -> np.ndarray:
     return (U / np.sqrt(s)) @ U.T
 
 
+def _from_upper(fp: torch.Tensor, iu_h, n: int) -> np.ndarray:
+    """The symmetric host matrix of a packed upper triangle."""
+    fp = fp.to(F64).cpu().numpy()
+    F = np.empty((n, n))
+    F[iu_h] = fp
+    F.T[iu_h] = fp
+    return F
+
+
 def do_rhf(
     sys_: dat.System,
     ints: dat.IntStore,
@@ -114,12 +336,43 @@ def do_rhf(
     S = ints.ovlp
     H = ints.core_hamil
     H_dev = torch.as_tensor(H, dtype=F64, device=dev)
-    eri_dev = ints.eri_on_device(dev)
+    stream = False
+    if n >= _TPU_FOCK_NBASIS and (ints.eri is not None or ints.eri_packed is not None):
+        from .mp2 import _force_stream
+
+        stream = _force_stream()
+    if stream:
+        # packed-resident tier: the J/K consts are gathered and digitized
+        # from the packed store; no dense tensor is built
+        tk_h, tl_h = np.tril_indices(n)
+        tk = torch.as_tensor(tk_h, device=dev)
+        tl = torch.as_tensor(tl_h, device=dev)
+        fock_consts = _fock_stream_consts(ints.packed_on_device(dev), tk, tl, n=n)
+        iu_h = np.triu_indices(n)
+        iu = (torch.as_tensor(iu_h[0], device=dev), torch.as_tensor(iu_h[1], device=dev))
+    else:
+        eri_dev = ints.eri_on_device(dev)
     X = symmetric_orthogonaliser_np(S)
 
+    prelude_guess = False
     if cfg.scf_read_guess:
         rep.write(" Reading previous AO Fock matrix as guess...")
         F = dat.read_scf_guess(Path(workdir) / "guess_in.dat", n)
+    elif stream:
+        # the device prelude converges the far-from-convergence phase;
+        # the host loop below polishes to the els.in tolerances.  A DIIS-
+        # off config still gets a 2-slot ring (JAX `:517-549`)
+        as_dev = lambda a: torch.as_tensor(a, dtype=F64, device=dev)
+        fp, pre_iters = _scf_prelude_device(
+            H_dev, as_dev(S), as_dev(X), fock_consts, iu, tk, tl, nocc=nocc,
+            nerr=max(cfg.scf_diis_n_errmat, 2), maxiter=min(cfg.scf_maxiter, 40),
+        )
+        F = _from_upper(fp, iu_h, n)
+        if not np.isfinite(F).all():  # diverged prelude: core guess
+            F = H.copy()
+        else:
+            prelude_guess = True
+            rep.write(f" Device SCF prelude: {pre_iters} iterations.")
     else:
         # Core-Hamiltonian guess (hf.f90:78-81)
         F = H.copy()
@@ -164,7 +417,14 @@ def do_rhf(
         energy_old = energy
         D_old = D
         D_dev = torch.as_tensor(D, dtype=F64, device=dev)
-        F = fock_build(H_dev, eri_dev, D_dev).cpu().numpy()
+        if stream:
+            # packed upper triangle, in f32 while far from convergence
+            # unless the prelude already converged the guess (JAX `:590-609`)
+            early = rms > 1e-3 and not prelude_guess
+            fp = _fock_build_stream(H_dev, D_dev, fock_consts, tk, tl, iu, packed_f32=early)
+            F = _from_upper(fp, iu_h, n)
+        else:
+            F = fock_build(H_dev, eri_dev, D_dev).cpu().numpy()
         err = F @ D @ S - S @ D @ F  # DIIS error (hf.f90:212-213)
         extrap = diis.update(F, err)
         if extrap is not None:

@@ -12,8 +12,12 @@ MP2 energy (mp2.f90:418-440):
 The JAX package streams at nbasis >= `STREAM_NBASIS` only on a TPU, or
 at any size under `AFESP_FORCE_STREAM=1` (`afesp_tpu/methods/mp2.py:266`);
 everywhere else it runs this dense path at any size.  The port never
-runs on a TPU, so it is dense at every nbasis, and raises "not ported
-yet" only where JAX would be forced to stream.
+runs on a TPU, so it is dense at every nbasis unless AFESP_FORCE_STREAM=1
+selects the streaming tier: the packed store goes through the sliced
+transform (`methods/mo_slices.py`) to the CCSD slices, with v_vvvv held
+only as per-chunk int8 limbs (`vvvv_B`), and the MP2 energy comes from
+the <ij|ab> slice (`mp2_energy_from_oovv`).  No dense MO tensor exists
+there, so no FCIDUMP is written.
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ from ..io.report import Reporter
 from .hf import HFResult
 
 # Above this basis size the JAX package switches to its streaming tier on
-# a TPU (`afesp_tpu/methods/mp2.py:48`).  Kept for parity of the two
-# modules; the port reads it nowhere, since it never runs on a TPU.
+# a TPU (`afesp_tpu/methods/mp2.py:48`).  The port, never on a TPU,
+# streams only under AFESP_FORCE_STREAM=1; the value names the tier in
+# the driver's refusal of the spin-orbital CCSD there.
 STREAM_NBASIS = 140
 
 
@@ -47,7 +52,11 @@ def _force_stream() -> bool:
 @dataclasses.dataclass
 class MP2Result:
     e_mp2: float
-    eri_mo: torch.Tensor  # dense chemist (pq|rs) in the canonical MO basis
+    # dense chemist (pq|rs) in the canonical MO basis; None on the
+    # streaming tier, where `slices` and `vvvv_B` carry the MO integrals
+    eri_mo: torch.Tensor | None
+    slices: object = None  # ccsd_spatial.Slices (v_vvvv None)
+    vvvv_B: object = None  # prechunk_B_chunkscaled limbs of v_vvvv
 
 
 def ao_to_mo(eri: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -78,6 +87,20 @@ def mp2_energy(eri_mo: torch.Tensor, levels: torch.Tensor, nocc: int) -> torch.T
     return torch.sum(ov * (2.0 * ov - exch) / denom)
 
 
+def mp2_energy_from_oovv(v_oovv: torch.Tensor, levels_o: torch.Tensor,
+                         levels_v: torch.Tensor) -> torch.Tensor:
+    """MP2 energy from the physicist <ij|ab> slice: (ia|jb) = v_oovv[ijab]
+    (mp2.f90:418-440 on the slice the streaming transform has)."""
+    denom = (
+        levels_o[:, None, None, None]
+        + levels_o[None, :, None, None]
+        - levels_v[None, None, :, None]
+        - levels_v[None, None, None, :]
+    )
+    exch = v_oovv.permute(0, 1, 3, 2)  # (ib|ja) = <ij|ba>
+    return torch.sum(v_oovv * (2.0 * v_oovv - exch) / denom)
+
+
 def do_mp2_spatial(
     sys_: dat.System,
     ints: dat.IntStore,
@@ -90,15 +113,31 @@ def do_mp2_spatial(
     dev = default_device(device)
     rep = rep or Reporter()
     t_start = time.perf_counter()
-    if _force_stream():
-        raise NotImplementedError(
-            "AFESP_FORCE_STREAM=1: the streaming tier is not ported yet"
-        )
     rep.section("MP2")
     rep.write(" Performing AO to MO ERI transformation...")
 
     nocc = sys_.nel // 2
     C = torch.as_tensor(hf.coeff, dtype=F64, device=dev)
+    if _force_stream():
+        # streaming tier: packed store -> physicist slices, each vvvv
+        # chunk digitized to L=5 limbs with its own scales as it is
+        # computed (JAX `:266-293`); the packed store is freed once the
+        # transform's row table supersedes it
+        from .mo_slices import ao_to_mo_slices
+
+        slices, vvvv_B = ao_to_mo_slices(
+            ints.packed_on_device(dev), C, n=sys_.nbasis, nocc=nocc, digit_L=5,
+            free_packed=ints.free_device_packed,
+        )
+        rep.write(" Calculating MP2 energy...")
+        lv = torch.as_tensor(hf.levels, dtype=F64, device=dev)
+        e_mp2 = float(mp2_energy_from_oovv(slices.v_oovv, lv[:nocc], lv[nocc:]))
+        rep.write(f" MP2 correlation energy (Hartree): {e_mp2:15.8f}")
+        if cfg.write_fcidump:
+            rep.write(" FCIDUMP skipped: no dense MO tensor on the streaming tier.")
+        rep.stage_time("Time taken for restricted MP2:", time.perf_counter() - t_start)
+        return MP2Result(e_mp2=e_mp2, eri_mo=None, slices=slices, vvvv_B=vvvv_B)
+
     eri_mo = ao_to_mo(ints.eri_on_device(dev), C)
     # nothing downstream reads the AO ERI: free the device copy (1.45 GB
     # at 116 bf) before the CC stages, as `afesp_tpu/methods/mp2.py:315`

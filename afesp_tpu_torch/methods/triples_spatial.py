@@ -81,10 +81,15 @@ def _xbar(x: torch.Tensor) -> torch.Tensor:
     return 4.0 / 3.0 * x - 2.0 * acb + 2.0 / 3.0 * bca
 
 
-def cr_intermediates(t1, t2, t1_prev, t2_prev, v: Slices, nocc: int):
+def cr_intermediates(t1, t2, t1_prev, t2_prev, v: Slices, nocc: int, vvvv_term=None):
     """I_vovv'' and I_ooov'' (build_cr_ccsd_t_intermediates,
     ccsd.f90:2338-2551) in f64, with stale I_vo/asym_t2 from
-    (t1_prev, t2_prev)."""
+    (t1_prev, t2_prev).
+
+    vvvv_term: the chain's one v_vvvv contraction es("ecba,ie->ciab",
+    v_vvvv, t1) (ccsd.f90:2513), computed on the streaming tier from the
+    digit limbs (`ccsd_spatial._cr_vvvv_term_from_B`); with it v.v_vvvv
+    may be None."""
     # stale quantities (module docstring)
     asym_t2 = 2.0 * t2_prev - t2_prev.permute(1, 0, 2, 3)
     I_vo = 2.0 * es("miea,me->ai", v.v_oovv, t1_prev) - es("miae,me->ai", v.v_oovv, t1_prev)
@@ -115,9 +120,11 @@ def cr_intermediates(t1, t2, t1_prev, t2_prev, v: Slices, nocc: int):
     )
 
     # I_vovv'' (ccsd.f90:2513-2520)
+    if vvvv_term is None:
+        vvvv_term = es("ecba,ie->ciab", v.v_vvvv, t1)
     I_vovv_pp = (
         v.v_vvov.permute(3, 2, 1, 0)
-        + es("ecba,ie->ciab", v.v_vvvv, t1)
+        + vvvv_term
         - es("icma,mb->ciab", x_ovov_p, t1)
         - es("ma,cimb->ciab", t1, x_voov_p)
         - es("cm,miab->ciab", I_vo, t2)
@@ -391,7 +398,14 @@ def do_ccsd_t_spatial(
     lv = torch.as_tensor(levels, dtype=t1.dtype, device=dev)
     e_o, e_v = lv[:nocc], lv[nocc : nocc + nvirt]
     if doing_CR:
-        I_vovv_pp, I_ooov_pp = cr_intermediates(t1, t2, cc.t1_prev, cc.t2_prev, v, nocc)
+        if v.v_vvvv is None and cc.cr_vvvv_term is None:
+            raise AssertionError(
+                "CR intermediates need v_vvvv or its precomputed contraction "
+                "(streaming tier: do_ccsd_spatial computes cr_vvvv_term when "
+                "the config requests a CR variant)"
+            )
+        I_vovv_pp, I_ooov_pp = cr_intermediates(t1, t2, cc.t1_prev, cc.t2_prev, v, nocc,
+                                                vvvv_term=cc.cr_vvvv_term)
     else:
         I_vovv_pp = I_ooov_pp = None
 

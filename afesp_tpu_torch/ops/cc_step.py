@@ -3,7 +3,9 @@
 Port of `afesp_tpu/ops/cc_step.py:24-302`: the DIIS ring buffers, the
 incrementally maintained Gram matrix, the fixed-size bordered solve
 (`gauss_solve`, with its singular-pivot guard), the extrapolation, and
-`make_cc_solver` with its `precompute` hook (`:199-237`): loop-constant
+`make_cc_solver` with its `precompute` hook (`:199-237`) and
+`make_cc_solver_pre` (`:239`), whose hook also takes an operand built
+outside the solve: loop-constant
 operands (the hybrid iterations' digitized ERI slices) are built once
 per solve and handed to every iteration.  The JAX package compiles the
 whole solve into one `lax.while_loop` (and pins the consts with an
@@ -176,5 +178,23 @@ def make_cc_solver(iteration_fn: Callable, energy_fn: Callable,
             if done:
                 return state, energies, True
         return state, energies, False
+
+    return solve
+
+
+def make_cc_solver_pre(iteration_fn: Callable, energy_fn: Callable,
+                       precompute: Callable) -> Callable:
+    """make_cc_solver whose solve takes one more operand, `pre`:
+    loop-constant data built outside the solve (the streaming
+    transform's digit-limb v_vvvv), handed to precompute(v, pre) once
+    per solve (JAX `:239`).
+
+    solve(state0, v, D_ia, D_ijab, oovv, e0, e_tol, t_tol, pre, *, nerr,
+          maxiter, on_iteration=None) -> (state, energies, converged)"""
+
+    def solve(state, v, D_ia, D_ijab, oovv, e0: float, e_tol: float, t_tol: float, pre,
+              **loop):
+        inner = make_cc_solver(iteration_fn, energy_fn, lambda v: precompute(v, pre))
+        return inner(state, v, D_ia, D_ijab, oovv, e0, e_tol, t_tol, **loop)
 
     return solve

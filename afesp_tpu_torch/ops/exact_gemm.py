@@ -375,17 +375,27 @@ def _exact_gemm_pre(A, B, A_pre, B_pre, maxdeg: int, route: str) -> torch.Tensor
     else:
         Bd, sB = digitize_B(B, len(Ad))
     if sB.ndim == 3:
+        # one K chunk at a time: each group's chunk value is scaled and
+        # summed into that group's f64 total in chunk order, so the
+        # transient is one (M, N) product per group slot, never the
+        # (nc, M, N) stack (2.4 GB a pair for the trimer's vvvv term)
         nc, kc, _ = Bd[0].shape
-        groups: dict = {}
-        for i in range(len(Ad)):
-            a = Ad[i]
-            for j in range(len(Bd)):
-                if i + j + 2 > maxdeg:
-                    continue
-                P = torch.stack([digit_pair_gemm(a[:, c * kc:(c + 1) * kc], Bd[j][c], route)
-                                 for c in range(nc)])
-                _group_add(groups, i + j + 2, P)
-        return _recombine(groups, sB) * (4.0 * sA)
+        totals: dict = {}
+        for c in range(nc):
+            groups: dict = {}
+            for i in range(len(Ad)):
+                a = Ad[i][:, c * kc:(c + 1) * kc]
+                for j in range(len(Bd)):
+                    if i + j + 2 > maxdeg:
+                        continue
+                    _group_add(groups, i + j + 2, digit_pair_gemm(a, Bd[j][c], route))
+            for k, (g, _) in groups.items():
+                t = g * 2.0 ** (-_Q * k[0]) * sB[c]
+                totals[k] = t if k not in totals else totals[k] + t
+        acc = None
+        for k in sorted(totals):
+            acc = totals[k] if acc is None else acc + totals[k]
+        return acc * (4.0 * sA)
     groups = {}
     for i in range(len(Ad)):
         for j in range(len(Bd)):
@@ -398,28 +408,32 @@ def _exact_gemm_pre(A, B, A_pre, B_pre, maxdeg: int, route: str) -> torch.Tensor
 
 
 def _group_add(groups: dict, d: int, P: torch.Tensor) -> None:
-    """Collect a degree-d pair product in the JAX package's slots: at
+    """Add a degree-d pair product into the JAX package's slots: at
     most six per slot (its f32 group sum stays below 2^24 and exact),
     the seventh same-degree pair (maxdeg=8) spilling to a second slot.
-    The slot layout fixes the order of the f64 sum across groups."""
+    The slot layout fixes the order of the f64 sum across groups.  A
+    slot holds its running sum and count: the products are integers far
+    below 2^53, so the sum is exact in any order and one (M, N) tensor
+    per slot is all that stays alive."""
     n = 0
-    while (d, n) in groups and len(groups[(d, n)]) >= 6:
+    while (d, n) in groups and groups[(d, n)][1] >= 6:
         n += 1
-    groups.setdefault((d, n), []).append(P)
+    if (d, n) in groups:
+        slot = groups[(d, n)]
+        slot[0].add_(P)  # the slot's tensor is the fresh first product
+        slot[1] += 1
+    else:
+        groups[(d, n)] = [P, 1]
 
 
-def _recombine(groups: dict, sB_chunks: torch.Tensor | None = None) -> torch.Tensor:
+def _recombine(groups: dict) -> torch.Tensor:
     """Fold the degree-grouped pair products into one f64 result.  Each
     group's sum is an exact integer (f64 holds it), times its 2^-7d
     weight (exact); the groups accumulate in f64 in sorted (degree, slot)
     order, the JAX package's order, which makes the flat-scale result its
-    bit for bit.  sB_chunks: per-chunk column scales (nc, 1, N), applied
-    to each chunk's group value before the chunk sum."""
+    bit for bit."""
     acc = None
     for k in sorted(groups):
-        ps = groups[k]
-        g = ps[0] if len(ps) == 1 else sum(ps[1:], start=ps[0])
-        g = g * 2.0 ** (-_Q * k[0])
-        t = (g * sB_chunks).sum(0) if sB_chunks is not None else g
-        acc = t if acc is None else acc + t
+        g = groups[k][0] * 2.0 ** (-_Q * k[0])
+        acc = g if acc is None else acc + g
     return acc

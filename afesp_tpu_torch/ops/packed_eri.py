@@ -26,6 +26,13 @@ def pack_eri(eri: torch.Tensor) -> torch.Tensor:
     return eri[I[IJ], J[IJ], I[KL], J[KL]].contiguous()
 
 
+def pair_index(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """eri_ind's pair index tri(max) + min (integrals.f90:196-210), in
+    the dtype of x and y."""
+    lo, hi = torch.minimum(x, y), torch.maximum(x, y)
+    return hi * (hi + 1) // 2 + lo
+
+
 def unpack_eri(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Packed -> dense (n,n,n,n) as ONE gather on `packed`'s device.
 
@@ -35,12 +42,6 @@ def unpack_eri(packed: torch.Tensor, n: int) -> torch.Tensor:
     (npair*(npair+1) < 2^31)."""
     assert n <= 300, "int32 packed-index arithmetic overflows beyond n=300"
     i = torch.arange(n, dtype=torch.int32, device=packed.device)
-    lo = torch.minimum(i[:, None], i[None, :])
-    hi = torch.maximum(i[:, None], i[None, :])
-    pair = (hi * (hi + 1) // 2 + lo).reshape(-1)  # (n^2,)
-    ij = pair[:, None]
-    kl = pair[None, :]
-    plo = torch.minimum(ij, kl)
-    phi = torch.maximum(ij, kl)
-    ind = phi * (phi + 1) // 2 + plo  # (n^2, n^2)
+    pair = pair_index(i[:, None], i[None, :]).reshape(-1)  # (n^2,)
+    ind = pair_index(pair[:, None], pair[None, :])  # (n^2, n^2)
     return packed[ind].reshape(n, n, n, n)

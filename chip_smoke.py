@@ -99,7 +99,24 @@ prints one line with its wall time:
      1e-8 of oracle.json, K4 once and no other kernel, the card's peak
      memory; then K4 held and timed on the path's amplitudes; then the
      committed els.in as written, "hybrid" (`trimer_hybrid_path`);
- 14. one JSON line of every path's metrics (`paths`: wall, CC iteration
+ 14. the streaming-slices tier (`stream_pieces`, `dimer_stream_path`,
+     `trimer_stream_path`): its pieces at small seeded shapes on the card
+     against the port's CPU run bit for bit (the stream Fock consts and
+     build, the sliced transform's slices, vvvv limbs and scales over
+     several chunks, the CR term from the limbs); then the dimer (after
+     its hybrid path) and the trimer (after its hybrid path, through the
+     same eri.npy) with AFESP_FORCE_STREAM=1 set for the phase alone and
+     the committed els.in as written: every breakdown value within 1e-8
+     of the JAX package's stream run (`expected_jax_cpu*_stream.json`),
+     equal SCF, prelude and CC iteration counts, MP2, CCSD and the six
+     triples within 1e-10 of it (JAX's f64 triples on its own stream
+     amplitudes and CR term), and against the port's own dense hybrid
+     run MP2 within 1e-10, CCSD 1e-8, the triples 5e-8, D[T] and D(T)
+     1e-6; K3 (dimer) or K4 (trimer) once and no other kernel, then held
+     and timed on the stream path's amplitudes; each prints its wall,
+     stage walls, CC ms an iteration and peak memory beside the dense
+     hybrid run's;
+ 15. one JSON line of every path's metrics (`paths`: wall, CC iteration
      ms, CCSD TFLOP/s by flops.py, peak memory), and one of the kernels,
      a row for each kernel at each shape timed: launches on the path
      that runs it, times, bound, the bound's share of the time and
@@ -155,6 +172,23 @@ HYBRID_EXPECTED = {
     "spinorb_dimer_hybrid_path": DIMER / "expected_jax_cpu_ccsd_t_spinorb_hybrid.json",
     "trimer_hybrid_path": TRIMER / "expected_jax_cpu_crccsd_t_spatial_hybrid.json",
 }
+# the JAX package's CPU runs of the streaming-slices tier (AFESP_FORCE_STREAM=1,
+# the committed els.in), with its f64 triples on its own stream amplitudes and
+# CR term (tools/make_torch_dimer_fixture.py --stream)
+STREAM_EXPECTED = {
+    "dimer_stream_path": DIMER / "expected_jax_cpu_crccsd_t_spatial_stream.json",
+    "trimer_stream_path": TRIMER / "expected_jax_cpu_crccsd_t_spatial_stream.json",
+}
+# a stream path against the JAX stream run: MP2, CCSD and the six triples
+STREAM_TOL = 1e-10
+# ... and against the port's own dense "hybrid" run of the same input, at
+# the tolerances the JAX package holds its stream tier to its dense one
+# (tests/test_stream_tier.py): MP2, CCSD, the six triples, D[T] and D(T)
+STREAM_VS_DENSE_TOL = {"e_mp2": 1e-10, "e_ccsd": 1e-8, "triples": 5e-8, "D": 1e-6}
+SIX_TRIPLES = ("e_ccsd_t", "e_ccsd_tt", "e_rccsd_t", "e_rccsd_tt", "e_crccsd_t",
+               "e_crccsd_tt")
+# each path's energies, for the stream-vs-dense checks
+PATH_VALUES: dict = {}
 DIMER_BASIS = "cc-pvtz"  # tools/make_dimer.py
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the f64 tensor-core
 # peak (the f64 work of every kernel could at best run there)
@@ -405,14 +439,15 @@ def six_sum_error(got, want) -> tuple[float, float]:
 
 
 def spatial_kernel_checks(torch, dev, o: int, v: int, args=None, flags=None,
-                          label: str = "") -> dict:
+                          label: str = "", names: tuple | None = None) -> dict:
     """K3, K4 and K5 against their plain versions at (o, v), all variants
     on (K3 and K5 up to nvirt 128, as their tiers run), with the kernels',
     the plain versions' and the library's times, the bounds and K3's and
     K4's splits.  Up to the spatial path's shape every time is a mean of 5
     launches; above it the kernels take 2, and the plain versions and
     the all-torch f64 tier one launch each.  The inputs are seeded random
-    ones unless `args` (and the path's variant `flags`) are given."""
+    ones unless `args` (and the path's variant `flags`) are given; `names`
+    keeps only those kernels' rows."""
     from afesp_tpu_torch.methods import triples_spatial as TS
     from afesp_tpu_torch.ops import triples_spatial_cuda as S
 
@@ -453,6 +488,8 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, args=None, flags=None,
     ):
         if name == "triples_fused_spatial" and v > 128:
             continue  # K3 is the default up to nvirt 128: checked up to the dimer's
+        if names is not None and name not in names:
+            continue
         rows[name] = held(name, lambda fn=fn: fn(*args, si, sj, sk, w, **flags),
                           lambda plain=plain: plain(*args, si, sj, sk, w, **flags))
         rows[name].update(library_ms=cuda_ms(torch, f64_total) if small else
@@ -473,7 +510,8 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, args=None, flags=None,
         rows[name]["group_ms"] = parts[:3]
         rows[name]["split_ms"] = [sum(parts[:3]), parts[3], parts[4]]
 
-    if v <= 128:  # K5 is checked up to the dimer's shape, as K3
+    if v <= 128 and (names is None or "triples_finale_spatial" in names):
+        # K5 is checked up to the dimer's shape, as K3
         # the panels of one i-slab, as the "pallas" tier builds them
         fa = TS.finale_panels(0, 0, *args, jlen=TS.pick_spatial_jlen(o, v, "pallas"),
                               doing_CR=flags["doing_CR"])
@@ -912,8 +950,9 @@ def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
     iteration counts), with HF and MP2 cross-checked against oracle.json
     as for the dimer.  K4 once and no other kernel; then K4 on the path's
     own amplitudes, held and timed; then the committed els.in as written
-    ("hybrid", trimer_hybrid_path).  Returns K4's launches, its row and
-    the two paths' metrics."""
+    ("hybrid", trimer_hybrid_path), and on the streaming-slices tier
+    (trimer_stream_path).  Returns K4's launches, its rows and the three
+    paths' metrics."""
     import numpy as np
 
     from afesp_tpu_torch.integrals import engine as E
@@ -1029,10 +1068,15 @@ def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
         shutil.copy(TRIMER / "els.in", wd / "els.in")
         hybrid = hybrid_path(torch, "trimer_hybrid_path", wd, kernels, "triples_tiled_spatial",
                              metrics)
+        # the same inputs (the engine's eri.npy, the committed els.in) on
+        # the streaming-slices tier
+        stream, stream_rows = stream_path(torch, "trimer_stream_path", wd, kernels,
+                                          "triples_tiled_spatial", "trimer_hybrid_path",
+                                          hybrid, dev)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
-    return launches["triples_tiled_spatial"], list(rows.items()), {
-        "trimer_path": metrics, "trimer_hybrid_path": hybrid}
+    return launches["triples_tiled_spatial"], list(rows.items()) + stream_rows, {
+        "trimer_path": metrics, "trimer_hybrid_path": hybrid, "trimer_stream_path": stream}
 
 
 def cc_metrics(text: str, res, wall: float, peak: int) -> dict:
@@ -1132,6 +1176,9 @@ def hybrid_path(torch, name: str, wd: Path, kernels: dict, kernel: str, f64: dic
                   if n not in (kernel, "digit_pair_gemm") and c}
         check(not others, f"{name}: other kernels launched: {others}")
         metrics = cc_metrics(text, res, wall, peak)
+        if res.cfg.restricted:
+            PATH_VALUES[name] = {"e_mp2": res.e_mp2, "e_ccsd": res.e_ccsd} | {
+                k: getattr(res.triples, k) for k in SIX_TRIPLES + ("D_T", "D_TT")}
         info.update(**{k: metrics[k] for k in ("wall_s", "cc_iterations", "cc_iter_ms",
                                                "ccsd_tflops", "peak_memory_gb")},
                     f64_path=json.dumps({k: f64[k] for k in ("wall_s", "cc_iterations",
@@ -1146,6 +1193,201 @@ def hybrid_path(torch, name: str, wd: Path, kernels: dict, kernel: str, f64: dic
         if line.lstrip().startswith("Time taken for"):
             print(f"  {line.strip()}", flush=True)
     return metrics
+
+
+def stream_pieces_phase(torch, dev) -> None:
+    """The streaming tier's pieces on the card against the port's own
+    CPU run, bit for bit (every step is an exact digit GEMM or an
+    elementwise f64 operation, so nothing may differ), on seeded inputs
+    (n=30, nocc=5): the stream Fock consts (digits and scales) and the
+    Fock build, whole and as the packed upper triangle in f32; the
+    sliced transform with its virtual rows forced into chunks of 5 and
+    its stage 1 into passes of two chunks: the five slices, the vvvv
+    limbs and their per-chunk scales; and the CR term from those limbs.
+    The card's times of each are printed."""
+    import numpy as np
+
+    from afesp_tpu_torch.methods import ccsd_spatial as CS
+    from afesp_tpu_torch.methods import hf as HF
+    from afesp_tpu_torch.methods import mo_slices as MS
+    from afesp_tpu_torch.ops.packed_eri import pack_eri
+
+    info = {}
+    with phase("stream_pieces", info):
+        n, nocc = 30, 5
+        nv = n - nocc
+        rng = np.random.default_rng(2026)
+        e = rng.standard_normal((n,) * 4)
+        e = e + e.transpose(1, 0, 2, 3)
+        e = e + e.transpose(0, 1, 3, 2)
+        e = (e + e.transpose(2, 3, 0, 1)) / 8.0
+        packed = pack_eri(torch.from_numpy(e))
+        H = rng.standard_normal((n, n))
+        H = torch.from_numpy(H + H.T)
+        Cc = rng.standard_normal((nocc, n))
+        D = torch.from_numpy(Cc.T @ Cc)
+        C = torch.from_numpy(rng.standard_normal((n, n)) / np.sqrt(n))
+        t1 = torch.from_numpy(0.05 * rng.standard_normal((nocc, nv)))
+        tk, tl = (torch.from_numpy(x) for x in np.tril_indices(n))
+        iu = tuple(torch.from_numpy(x) for x in np.triu_indices(n))
+        pick, group_bytes = MS._pick_chunk, MS._GROUP_BYTES
+
+        def run(d):
+            to = lambda x: x.to(d)
+            consts = HF._fock_stream_consts(to(packed), to(tk), to(tl), n=n)
+            F = HF._fock_build_stream(to(H), to(D), consts, to(tk), to(tl))
+            Fp = HF._fock_build_stream(to(H), to(D), consts, to(tk), to(tl),
+                                       tuple(map(to, iu)), packed_f32=True)
+            MS._pick_chunk = lambda nvirt, n_: 5
+            MS._GROUP_BYTES = 2 * 8.0 * n**3 * 5
+            try:
+                sl, B = MS.ao_to_mo_slices(to(packed), to(C), n=n, nocc=nocc, digit_L=5)
+            finally:
+                MS._pick_chunk, MS._GROUP_BYTES = pick, group_bytes
+            cr = CS._cr_vvvv_term_from_B(to(t1), B, nv=nv)
+            return consts, F, Fp, sl, B, cr
+
+        cpu = run(torch.device("cpu"))
+        card = run(dev)
+        (cJ, cK), cF, cFp, csl, cB, ccr = cpu
+        (gJ, gK), gF, gFp, gsl, gB, gcr = card
+        same = lambda a, b: bool(torch.equal(a, b.cpu()))
+        for what, (cd, cs), (gd, gs) in (("J", cJ, gJ), ("K", cK, gK)):
+            check(all(same(a, b) for a, b in zip(cd, gd)) and same(cs, gs),
+                  f"stream Fock consts {what}: the card's digits or scales differ from the CPU's")
+        check(same(cF, gF) and same(cFp, gFp), "stream Fock build: the card differs from the CPU")
+        for f in ("v_oovv", "v_ovov", "v_vvov", "v_oovo", "v_oooo"):
+            check(same(getattr(csl, f), getattr(gsl, f)), f"sliced transform {f}: card != CPU")
+        check(cB[1].shape[0] == nv // 5 and all(same(a, b) for a, b in zip(cB[0], gB[0]))
+              and same(cB[1], gB[1]), "vvvv limbs or scales: the card's differ from the CPU's")
+        check(same(ccr, gcr), "CR term from the limbs: the card differs from the CPU")
+        consts = (gJ, gK)
+        ms = {
+            "fock_stream_consts": cuda_ms(torch, lambda: HF._fock_stream_consts(
+                packed.to(dev), tk.to(dev), tl.to(dev), n=n), 3),
+            "fock_build_stream": cuda_ms(torch, lambda: HF._fock_build_stream(
+                H.to(dev), D.to(dev), consts, tk.to(dev), tl.to(dev)), 3),
+            "cr_vvvv_term_from_B": cuda_ms(torch, lambda: CS._cr_vvvv_term_from_B(
+                t1.to(dev), gB, nv=nv), 3),
+        }
+        info.update(bitwise="fock_consts,fock_build,slices,vvvv_limbs,cr_term",
+                    limb_chunks=int(cB[1].shape[0]),
+                    card_ms=json.dumps({k: round(v, 4) for k, v in ms.items()}))
+
+
+def stream_path(torch, name: str, wd: Path, kernels: dict, kernel: str, dense: str,
+                dense_metrics: dict, dev) -> tuple[dict, list]:
+    """One path of the streaming-slices tier: run_calculation on `wd`
+    (the committed els.in as written) with AFESP_FORCE_STREAM=1 set for
+    this phase alone.  The CCSD must have run the tier (no dense MO
+    tensor, v_vvvv as limbs, the CR term from them), the device SCF
+    prelude must have run; every breakdown value within ENERGY_TOL of
+    the JAX stream run, equal SCF, prelude and CC iteration counts, MP2,
+    CCSD and the six triples within STREAM_TOL of it; against the port's
+    dense hybrid run of the same input (`dense`) within
+    STREAM_VS_DENSE_TOL, its metrics printed beside `dense_metrics`;
+    `kernel` launched once and no other kernel.  Then `kernel` on the
+    path's amplitudes, held and timed.  Returns the path's metrics and
+    its kernel row."""
+    import os
+    import re
+
+    from afesp_tpu_torch.io import fastparse
+    from afesp_tpu_torch.methods import triples_spatial as TS
+
+    want = json.loads(STREAM_EXPECTED[name].read_text())
+    check((wd / "els.in").read_text() == want["els_in"],
+          f"{name}: the staged els.in differs from the reference's")
+    torch.cuda.empty_cache()
+    info = {}
+    with phase(name, info):
+        old = os.environ.get("AFESP_FORCE_STREAM")
+        os.environ["AFESP_FORCE_STREAM"] = "1"
+        try:
+            fastparse.ROUTES.clear()
+            res, text, wall, peak, launches = run_path(torch, wd, kernels)
+        finally:
+            if old is None:
+                os.environ.pop("AFESP_FORCE_STREAM", None)
+            else:
+                os.environ["AFESP_FORCE_STREAM"] = old
+        routes = scanner_routes_check(fastparse, name, 3)
+        cc, tr = res.cc, res.triples
+        check(cc.precision_used == "hybrid" and cc.slices.v_vvvv is None
+              and cc.cr_vvvv_term is not None, f"{name}: the CCSD did not run the stream tier")
+        prelude = re.search(r"Device SCF prelude: (\d+) iterations", text)
+        check(prelude is not None, f"{name}: no device SCF prelude ran")
+        prelude = int(prelude.group(1))
+        got = {"e_mp2": res.e_mp2, "e_ccsd": res.e_ccsd} | {
+            k: getattr(tr, k) for k in SIX_TRIPLES + ("D_T", "D_TT")}
+        tol = {"e_mp2": STREAM_VS_DENSE_TOL["e_mp2"], "e_ccsd": STREAM_VS_DENSE_TOL["e_ccsd"],
+               "D_T": STREAM_VS_DENSE_TOL["D"], "D_TT": STREAM_VS_DENSE_TOL["D"]}
+        tol |= {k: STREAM_VS_DENSE_TOL["triples"] for k in SIX_TRIPLES}
+        vs_dense = {k: abs(got[k] - PATH_VALUES[dense][k]) for k in tol}
+        for k, err in vs_dense.items():
+            check(err <= tol[k], f"{name} {k}: off the dense hybrid path by {err:.3e}")
+        ref = {"e_mp2": want["e_mp2_corr"], "e_ccsd": want["e_ccsd_corr"]} | want["triples"]
+        vs_jax = {k: abs(got[k] - ref[k]) for k in ref}
+        for k in ("e_mp2", "e_ccsd") + SIX_TRIPLES:
+            check(vs_jax[k] <= STREAM_TOL,
+                  f"{name} {k}: off the JAX stream run by {vs_jax[k]:.3e}")
+        errs = {label: abs(val - want["breakdown_values"][label])
+                for label, val in printed_values(text, want["breakdown"]).items()}
+        check(len(errs) == len(want["breakdown_values"]),
+              f"{name}: the breakdown lacks a line of the reference's")
+        for key, err in errs.items():
+            check(err <= ENERGY_TOL, f"{name} {key}: off the JAX stream value by {err:.3e}")
+        check(prelude == want["prelude_iterations"],
+              f"{name}: prelude iterations {prelude} vs JAX {want['prelude_iterations']}")
+        check(res.hf.iterations == want["scf_iterations"],
+              f"{name}: SCF iterations {res.hf.iterations} vs JAX {want['scf_iterations']}")
+        check(cc.iterations == want["cc_iterations"],
+              f"{name}: CC iterations {cc.iterations} vs JAX {want['cc_iterations']}")
+        check(launches["digit_pair_gemm"] > 0, f"{name}: no digit-pair GEMM launched")
+        check(launches[kernel] == 1, f"{name}: {kernel} launched {launches[kernel]} times")
+        others = {n: c for n, c in launches.items()
+                  if n not in (kernel, "digit_pair_gemm") and c}
+        check(not others, f"{name}: other kernels launched: {others}")
+        metrics = cc_metrics(text, res, wall, peak)
+        metrics["stage_walls_s"] = path_walls(text, "restricted CCSD:",
+                                              "restricted completely renormalised",
+                                              cc.iterations)
+        metrics["prelude_iterations"] = prelude
+        info.update(**{k: metrics[k] for k in ("wall_s", "cc_iterations", "cc_iter_ms",
+                                               "peak_memory_gb")},
+                    dense_hybrid_path=json.dumps({k: dense_metrics[k] for k in (
+                        "wall_s", "cc_iterations", "cc_iter_ms", "peak_memory_gb")}),
+                    stage_walls_s=json.dumps(metrics["stage_walls_s"]),
+                    scf_iterations=res.hf.iterations, prelude_iterations=prelude,
+                    launches=json.dumps(launches),
+                    max_abs_err_breakdown=f"{max(errs.values()):.3e}",
+                    vs_jax=json.dumps({k: f"{v:.3e}" for k, v in vs_jax.items()}),
+                    vs_dense=json.dumps({k: f"{v:.3e}" for k, v in vs_dense.items()}),
+                    routes=json.dumps(routes))
+    for line in text.splitlines():
+        if line.lstrip().startswith("Time taken for") or "Device SCF prelude" in line:
+            print(f"  {line.strip()}", flush=True)
+
+    info = {}
+    with phase(f"{name}_kernels", info):
+        cfg, nocc = res.cfg, res.sys.nocc
+        lv = torch.as_tensor(res.hf.levels, dtype=torch.float64, device=dev)
+        Iv, Jo = TS.cr_intermediates(cc.t1, cc.t2, cc.t1_prev, cc.t2_prev, cc.slices, nocc,
+                                     vvvv_term=cc.cr_vvvv_term)
+        v = cc.slices
+        args = (cc.t1, cc.t2, v.v_vvov, v.v_oovo, v.v_oovv, lv[:nocc],
+                lv[nocc : nocc + res.sys.nvirt], Iv, Jo)
+        flags = dict(doing_T=cfg.ccsd_t_paren, doing_R=cfg.ccsd_t_renorm,
+                     doing_CR=cfg.ccsd_t_comp_renorm)
+        rows = spatial_kernel_checks(torch, dev, o=nocc, v=res.sys.nvirt, args=args,
+                                     flags=flags, label=f", {name}'s amplitudes",
+                                     names=(kernel,))
+        check(list(rows) == [kernel], f"{name} kernel rows {list(rows)}")
+        rows[kernel]["launches"] = launches[kernel]
+        info.update({n: json.dumps(r) for n, r in rows.items()})
+    del res, cc, v, args, Iv, Jo
+    torch.cuda.empty_cache()
+    return metrics, list(rows.items())
 
 
 def digit_gemm_phase(torch, dev) -> None:
@@ -1522,6 +1764,7 @@ def main() -> int:
             info.update({n: json.dumps(r) for n, r in big.items()})
             table += list(big.items())
     digit_gemm_phase(torch, dev)
+    stream_pieces_phase(torch, dev)
 
     wd = stage_workdir()
     try:
@@ -1614,6 +1857,11 @@ def main() -> int:
         shutil.copy(DIMER / "els.in", wd / "els.in")
         paths["dimer_hybrid_path"] = hybrid_path(torch, "dimer_hybrid_path", wd, kernels,
                                                  "triples_fused_spatial", paths["dimer_path"])
+        # the same inputs on the streaming-slices tier
+        paths["dimer_stream_path"], stream_rows = stream_path(
+            torch, "dimer_stream_path", wd, kernels, "triples_fused_spatial",
+            "dimer_hybrid_path", paths["dimer_hybrid_path"], dev)
+        table += stream_rows
         _, spinorb_rows, paths["spinorb_dimer_path"] = spinorb_dimer_phases(torch, dev,
                                                                             kernels, wd)
         table += spinorb_rows

@@ -219,10 +219,18 @@ def test_from_jax_takes_the_restricted_state(stages, jax_cc):
 
 
 def test_unported_ccsd_tier_raises(stages):
-    """Without a dense MO tensor (the JAX package's streaming-slices
-    tier) the port refuses."""
+    """Without a dense MO tensor, the streaming-slices tier needs its
+    slices and vvvv limbs: without them both packages refuse with an
+    AssertionError (the tier itself runs since it was ported:
+    tests/test_torch_stream_tier.py)."""
     st = from_jax(device="cpu", sys_=stages["sys_"], hf=stages["hf"])
     tc = tcfg.read_els_in(stages["wd"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    tc.ccsd_precision = "hybrid"
+    jc = read_els_in(stages["wd"])
+    jc.ccsd_precision = "hybrid"
+    with pytest.raises(AssertionError):
+        jcc.do_ccsd_spatial(stages["sys_"], None, jc, stages["hf"],
+                            JaxReporter(stream=io.StringIO()))
+    with pytest.raises(AssertionError, match="slices and the vvvv limbs"):
         tcc.do_ccsd_spatial(st["sys_"], None, tc, st["hf"], Reporter(stream=io.StringIO()),
                             device="cpu")

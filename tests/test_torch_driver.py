@@ -208,14 +208,21 @@ def test_dense_path_above_stream_nbasis(tmp_path, h2o, monkeypatch):
     assert breakdown_block(text) == breakdown_block(jtext)
 
 
-def test_forced_streaming_raises(tmp_path, h2o, monkeypatch):
-    """AFESP_FORCE_STREAM=1, where the JAX package streams at any size,
-    is refused: the streaming tier is not ported yet."""
+@pytest.mark.parametrize("calc", ["MP2_spatial", "MP2_spinorb"])
+def test_forced_streaming_matches_jax(tmp_path, h2o, monkeypatch, calc):
+    """AFESP_FORCE_STREAM=1 routes the MP2 stage through the streaming
+    tier in both packages (the sliced transform, no dense MO tensor, no
+    FCIDUMP): the breakdowns are equal, MP2 within 1e-10, and the CLI
+    runs it.  tests/test_torch_stream_tier.py holds the whole tier."""
     monkeypatch.setenv("AFESP_FORCE_STREAM", "1")
-    wd = _stage(tmp_path, h2o, "CCSD_spatial")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_calculation(wd, Reporter(stream=io.StringIO()), device="cpu")
-    assert cli_main([str(wd), "--device", "cpu"]) == 999
+    wd = _stage(tmp_path, h2o, calc, "write_fcidump = .true.,\n")
+    jres, jtext = _run_jax(wd)
+    res, text = _run_port(wd)
+    assert abs(res.e_mp2 - jres.e_mp2) < 1e-10
+    assert breakdown_block(text) == breakdown_block(jtext)
+    skipped = "FCIDUMP skipped: no dense MO tensor on the streaming tier."
+    assert skipped in text and skipped in jtext and not (wd / "FCIDUMP").exists()
+    assert cli_main([str(wd), "--device", "cpu"]) == 0
 
 
 @pytest.fixture(scope="module")

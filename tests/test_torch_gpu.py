@@ -462,3 +462,86 @@ def test_hybrid_iterations_on_the_card_match_the_cpu():
         out[str(d)] = [x.cpu().numpy() for x in (t1, t2, s1, s2)]
     for got, want in zip(out[str(dev)], out["cpu"]):
         assert np.max(np.abs(got - want)) <= 1e-10 * np.abs(want).max()
+
+
+def _packed_symmetric_eri(n: int, seed: int):
+    import numpy as np
+
+    from afesp_tpu_torch.ops.packed_eri import pack_eri
+
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal((n,) * 4)
+    e = e + e.transpose(1, 0, 2, 3)
+    e = e + e.transpose(0, 1, 3, 2)
+    e = (e + e.transpose(2, 3, 0, 1)) / 8.0
+    return pack_eri(torch.as_tensor(e))
+
+
+@pytest.mark.parametrize("n,nocc,nr", [(14, 4, 5), (20, 5, 3)])
+def test_stream_pieces_on_the_card_match_the_cpu(n, nocc, nr, monkeypatch):
+    """The streaming tier's pieces on the card equal the CPU's bit for bit:
+    the stream Fock consts and build (whole and packed f32), the sliced
+    transform's slices and its vvvv limbs and scales (virtual rows forced
+    into chunks of nr, stage 1 into passes of two chunks), and the CR
+    term from the limbs."""
+    import numpy as np
+
+    from afesp_tpu_torch.methods import ccsd_spatial as CSP
+    from afesp_tpu_torch.methods import hf as HF
+    from afesp_tpu_torch.methods import mo_slices as MS
+
+    dev = _card()
+    nv = n - nocc
+    monkeypatch.setattr(MS, "_pick_chunk", lambda nvirt, n_: nr)
+    monkeypatch.setattr(MS, "_GROUP_BYTES", 2 * 8.0 * n**3 * nr)
+    packed = _packed_symmetric_eri(n, seed=n)
+    rng = np.random.default_rng(n + 1)
+    H = rng.standard_normal((n, n))
+    H = torch.as_tensor(H + H.T)
+    Cc = rng.standard_normal((nocc, n))
+    D = torch.as_tensor(Cc.T @ Cc)
+    C = torch.as_tensor(rng.standard_normal((n, n)) / np.sqrt(n))
+    t1 = torch.as_tensor(0.05 * rng.standard_normal((nocc, nv)))
+    tk, tl = (torch.as_tensor(x) for x in np.tril_indices(n))
+    iu = tuple(torch.as_tensor(x) for x in np.triu_indices(n))
+    out = {}
+    for d in ("cpu", dev):
+        to = lambda x: x.to(d)
+        consts = HF._fock_stream_consts(to(packed), to(tk), to(tl), n=n)
+        F = HF._fock_build_stream(to(H), to(D), consts, to(tk), to(tl))
+        Fp = HF._fock_build_stream(to(H), to(D), consts, to(tk), to(tl), tuple(map(to, iu)),
+                                   packed_f32=True)
+        sl, (limbs, scales) = MS.ao_to_mo_slices(to(packed), to(C), n=n, nocc=nocc, digit_L=5)
+        cr = CSP._cr_vvvv_term_from_B(to(t1), (limbs, scales), nv=nv)
+        flat = [*consts[0][0], consts[0][1], *consts[1][0], consts[1][1], F, Fp,
+                sl.v_oovv, sl.v_ovov, sl.v_vvov, sl.v_oovo, sl.v_oooo, *limbs, scales, cr]
+        out[str(d)] = [x.cpu() for x in flat]
+    assert scales.shape[0] == nv // nr
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        assert torch.equal(got, want)
+
+
+def test_stream_iterations_on_the_card_match_the_cpu():
+    """Three external-slices CCSD iterations (v_vvvv as per-chunk limbs,
+    `spatial_presplit_ext`) on the card against the same on the CPU:
+    within 1e-10 of scale, as the dense hybrid iterations."""
+    import numpy as np
+
+    from afesp_tpu_torch.methods import ccsd_spatial as CSP
+    from afesp_tpu_torch.ops.exact_gemm import prechunk_B_chunkscaled
+
+    dev = _card()
+    eri, levels = _random_eri_mo(16)
+    out = {}
+    for d in ("cpu", dev):
+        e, lv = torch.as_tensor(eri, device=d), torch.as_tensor(levels, device=d)
+        sv, sD1, sD2, s1, s2, _, _ = CSP.spatial_cc_init(e, lv, 3)
+        nv = sv.v_vvvv.shape[0]
+        vvvv_B = prechunk_B_chunkscaled(sv.v_vvvv.reshape(nv * nv, nv * nv), L=5)
+        sv.v_vvvv = None
+        consts = CSP.spatial_presplit_ext(sv, vvvv_B)
+        for _ in range(3):
+            s1, s2 = CSP._iteration_core(s1, s2, sv, sD1, sD2, consts, vvvv_split=True)
+        out[str(d)] = [x.cpu().numpy() for x in (s1, s2)]
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        assert np.max(np.abs(got - want)) <= 1e-10 * np.abs(want).max()

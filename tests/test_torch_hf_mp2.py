@@ -79,13 +79,30 @@ def test_mp2_and_fcidump_match_jax(jax_run, tmp_path):
     assert (tmp_path / "FCIDUMP").read_text() == (jax_run["wd"] / "FCIDUMP").read_text()
 
 
-def test_mp2_streaming_tier_not_ported(jax_run, monkeypatch):
-    """Only AFESP_FORCE_STREAM=1 asks for the streaming tier off a TPU;
-    the port refuses it."""
+def test_mp2_streaming_tier_not_ported(jax_run, monkeypatch, tmp_path):
+    """Only AFESP_FORCE_STREAM=1 asks for the streaming tier off a TPU.
+    The port refused it until the tier was ported; now, from JAX's HF,
+    its stream MP2 (the sliced transform: no dense MO tensor, v_vvvv as
+    limbs, no FCIDUMP) equals JAX's stream MP2 within 1e-10, its slices
+    JAX's within 1e-12 of scale and its limbs JAX's exactly."""
     monkeypatch.setenv("AFESP_FORCE_STREAM", "1")
-    st = from_jax(device="cpu", sys_=jax_run["sys_"])
-    st["sys_"].nbasis = tmp2.STREAM_NBASIS
-    cfg = tcfg.Config()
-    with pytest.raises(NotImplementedError, match="streaming tier"):
-        tmp2.do_mp2_spatial(st["sys_"], None, cfg, None, Reporter(stream=io.StringIO()),
-                            device="cpu")
+    jrep = JaxReporter(stream=io.StringIO())
+    jcfg = read_els_in(jax_run["wd"])
+    want = jmp2.do_mp2_spatial(jax_run["sys_"], jax_run["ints"], jcfg, jax_run["hf"], jrep,
+                               tmp_path)
+    st = from_jax(device="cpu", sys_=jax_run["sys_"], ints=jax_run["ints"], hf=jax_run["hf"])
+    rep = Reporter(stream=io.StringIO())
+    got = tmp2.do_mp2_spatial(st["sys_"], st["ints"], tcfg.read_els_in(jax_run["wd"]),
+                              st["hf"], rep, tmp_path, device="cpu")
+    assert got.eri_mo is None and want.eri_mo is None and got.slices.v_vvvv is None
+    assert abs(got.e_mp2 - want.e_mp2) < 1e-10
+    for name in ("v_oovv", "v_ovov", "v_vvov", "v_oovo", "v_oooo"):
+        w = np.asarray(getattr(want.slices, name))
+        assert np.max(np.abs(getattr(got.slices, name).numpy() - w)) <= 1e-12 * np.abs(w).max()
+    (limbs, scales), (jlimbs, jscales) = got.vvvv_B, want.vvvv_B
+    assert all(np.array_equal(a.numpy(), np.asarray(b).astype(np.int8))
+               for a, b in zip(limbs, jlimbs))
+    assert np.array_equal(scales.numpy(), np.asarray(jscales))
+    skipped = " FCIDUMP skipped: no dense MO tensor on the streaming tier."
+    assert skipped in rep.stream.getvalue() and skipped in jrep.stream.getvalue()
+    assert not (tmp_path / "FCIDUMP").exists()

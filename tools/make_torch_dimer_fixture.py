@@ -47,6 +47,17 @@ file exists, reads them from it instead of running the engine.
 hybrid runs of the trimer and the spin-orbital dimer need it on a host
 with 62 GB.
 
+With `--stream` it runs the same driver under `AFESP_FORCE_STREAM=1`,
+the streaming-slices tier (packed-resident Fock build with its device
+SCF prelude, the sliced transform with v_vvvv as digit limbs, the
+external-slices CCSD and the CR term from the limbs), at the committed
+"hybrid" (the tier refuses f64), and writes
+`expected_jax_cpu_crccsd_t_spatial_stream.json` beside the inputs, with
+the prelude's iteration count (`prelude_iterations`) and the f64
+triples on the tier's own amplitudes and CR term; the driver's own
+(f32 "hybrid") triples tier is not run then.  The dimer's solve runs
+jitted; the trimer's needs `--eager-ccsd`.
+
 With `--pvtz --precision hybrid` it writes, in a few minutes, the two
 hybrid gates of the committed H2O/cc-pVTZ inputs instead
 (`data/h2o-cc-pvtz-2.00_104.45/expected_jax_cpu_hybrid.json`,
@@ -67,6 +78,8 @@ differ by up to ~2e-9.
     JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py --pvtz
     JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py [--spinorb | --trimer | --pvtz] \
         --precision hybrid [--eri-npy PATH] [--eager-ccsd]
+    JAX_PLATFORMS=cpu python tools/make_torch_dimer_fixture.py [--trimer] --stream \
+        [--eri-npy PATH] [--eager-ccsd]
 """
 
 from __future__ import annotations
@@ -74,6 +87,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -124,7 +138,8 @@ def breakdown_of(text: str) -> tuple[list[str], dict]:
 
 
 def run_driver(wd: Path, els_in: str, spinorb: bool = False,
-               f64_triples: bool = False, eager_ccsd: bool = False) -> dict:
+               f64_triples: bool = False, eager_ccsd: bool = False,
+               default_triples: bool = True) -> dict:
     """The JAX driver on `wd`, with its HF and CC results caught on the
     way (its RunResult keeps neither).  With `f64_triples` (spatial
     only) the driver's triples call runs its own tier, whose values are
@@ -132,7 +147,9 @@ def run_driver(wd: Path, els_in: str, spinorb: bool = False,
     same amplitudes, whose values the driver reports: the breakdown is
     then the CCSD of the els.in's precision with the f64 triples family.
     With `eager_ccsd` the CCSD solve runs under jax.disable_jit(), op by
-    op, so each intermediate is freed when it is dropped: the whole-solve
+    op, so each intermediate is freed when it is dropped (with
+    `default_triples` False the driver's own tier is skipped and only
+    the f64 tier runs): the whole-solve
     program of the hybrid CCSD holds every digit-pair product of a
     contraction at once and outgrew 62 GB of host memory at the trimer
     and the spin-orbital dimer (the same arithmetic: on the 24-bf H2O
@@ -180,12 +197,13 @@ def run_driver(wd: Path, els_in: str, spinorb: bool = False,
         return caught["cc"]
 
     def triples(sys_, cc, cfg, levels, rep, **k):
+        if default_triples:
+            t0 = time.perf_counter()
+            caught["t_default"] = do_t(sys_, cc, cfg, levels, rep, **k)
+            caught["t_default_s"] = time.perf_counter() - t0
+            rep = Reporter(stream=io.StringIO())
         t0 = time.perf_counter()
-        caught["t_default"] = do_t(sys_, cc, cfg, levels, rep, **k)
-        caught["t_default_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        caught["t_f64"] = do_t(sys_, cc, cfg, levels, Reporter(stream=io.StringIO()),
-                               precision="f64")
+        caught["t_f64"] = do_t(sys_, cc, cfg, levels, rep, precision="f64")
         caught["t_f64_s"] = time.perf_counter() - t0
         return caught["t_f64"]
 
@@ -209,6 +227,7 @@ def run_driver(wd: Path, els_in: str, spinorb: bool = False,
     block, values = breakdown_of(buf.getvalue())
     stage_walls = [ln.strip() for ln in buf.getvalue().splitlines()
                    if ln.lstrip().startswith("Time taken for")]
+    prelude = re.search(r"Device SCF prelude: (\d+) iterations", buf.getvalue())
     run = {
         "nocc": res.sys.nocc,
         "nvirt": res.sys.nvirt,
@@ -218,6 +237,7 @@ def run_driver(wd: Path, els_in: str, spinorb: bool = False,
         "e_ccsd_corr": res.e_ccsd,
         "t1_diagnostic": res.t1_diagnostic,
         "scf_iterations": caught["hf"].iterations,
+        "prelude_iterations": int(prelude.group(1)) if prelude else None,
         "cc_iterations": caught["cc"].iterations,
         "cc_converged": bool(caught["cc"].converged),
         "breakdown": block,
@@ -230,12 +250,13 @@ def run_driver(wd: Path, els_in: str, spinorb: bool = False,
     tr = res.triples
     run |= {"triples_precision_used": tr.precision_used,
             "triples": {k: float(getattr(tr, k)) for k in TRIPLES_KEYS}}
-    if f64_triples:
+    if f64_triples and default_triples:
         td = caught["t_default"]
         run["triples_driver_default"] = {
             "precision_used": td.precision_used,
             "triples": {k: float(getattr(td, k)) for k in TRIPLES_KEYS},
             "wall_s": caught["t_default_s"]}
+    if f64_triples:
         run["triples_f64_s"] = caught["t_f64_s"]
     return run
 
@@ -367,6 +388,10 @@ def spinorb_triples_f64(run: dict) -> dict:
 def main() -> int:
     args = sys.argv[1:]
     precision = args[args.index("--precision") + 1] if "--precision" in args else "f64"
+    stream = "--stream" in args
+    if stream:
+        os.environ["AFESP_FORCE_STREAM"] = "1"
+        precision = "hybrid"
     if precision not in ("f64", "hybrid"):
         raise SystemExit(f"--precision {precision!r}: f64 or hybrid")
     if "--pvtz" in args:
@@ -381,13 +406,15 @@ def main() -> int:
     if spinorb:
         out_path = DIMER / "expected_jax_cpu_ccsd_t_spinorb.json"
     if precision != "f64":
-        out_path = out_path.with_name(f"{out_path.stem}_{precision}.json")
+        tag = "stream" if stream else precision
+        out_path = out_path.with_name(f"{out_path.stem}_{tag}.json")
     eri_npy = Path(args[args.index("--eri-npy") + 1]) if "--eri-npy" in args else None
     packed, nbf, eri_s = engine_eri(d, eri_npy)
     out = {
         "source": "tools/make_torch_dimer_fixture.py " + " ".join(
-            a for a in args if a in ("--trimer", "--spinorb", "--hybrid", "--eager-ccsd"))
-        + (f" --precision {precision}" if precision != "f64" else ""),
+            a for a in args
+            if a in ("--trimer", "--spinorb", "--hybrid", "--eager-ccsd", "--stream"))
+        + (f" --precision {precision}" if precision != "f64" and not stream else ""),
         "jax_version": jax.__version__,
         "jax_backend": jax.default_backend(),
         "inputs": {"dir": str(d.relative_to(REPO)),
@@ -407,7 +434,8 @@ def main() -> int:
         els_in = els_in_at(d, precision, spinorb)
         run = run_driver(wd, els_in, spinorb,
                          f64_triples=precision != "f64" and not spinorb,
-                         eager_ccsd="--eager-ccsd" in args)
+                         eager_ccsd="--eager-ccsd" in args,
+                         default_triples=not stream)
         print(json.dumps({k: run[k] for k in ("scf_iterations", "cc_iterations",
                                               "wall_s")}), flush=True)
         if spinorb:
