@@ -7,6 +7,8 @@ and never drops to the CPU silently.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 F64 = torch.float64
@@ -22,3 +24,11 @@ def default_device(device: str | torch.device | None = None) -> torch.device:
             )
         return torch.device("cuda", 0)
     return torch.device(device)
+
+
+def current(dev: torch.device):
+    """A context in which `dev` is the current CUDA device (nothing on
+    another device): a kernel launched into a card's stream must run with
+    that card current, which a multi-device mesh does not otherwise make
+    it."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()

@@ -14,10 +14,13 @@ there with the JAX driver's ValueError.
 with the reference's timing lines and final energy-breakdown table
 (labels are scraped by the binding-curve wrapper, so they are API).
 The JAX compile cache, warmup and profiler are not ported.  The device
-mesh follows JAX's width rule (`afesp_tpu/driver.py:116-129`): 0 and 1
-run on one device, -1 means every visible device (the card count on a
-CUDA device, 1 on the CPU); a width of 2 or more raises "not ported
-yet".
+mesh follows JAX's width rule (`afesp_tpu/driver.py:112-129`): 0 and 1
+run on one device, -1 means every visible device (`parallel.mesh.
+visible_devices`: the cards on a CUDA device, the CPU alone on the
+CPU), a width above the visible count raises JAX's ValueError, and a
+width of 2 or more runs the CC stages on a mesh of the first that many
+(`parallel/`; the report says so), handed to both CCSD and both triples
+functions as in JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from .methods.ccsd_spatial import CCSDResult, do_ccsd_spatial
 from .methods.ccsd_spinorb import CCSDSpinorbResult, do_ccsd_spinorb
 from .methods.triples_spatial import TriplesResult, do_ccsd_t_spatial, triples_tier
 from .methods.triples_spinorb import do_ccsd_t_spinorb
+from .parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
@@ -61,14 +65,6 @@ class RunResult:
         return self.e_hf + self.e_highest + self.e_nuc
 
 
-def mesh_width(mesh_devices: int, dev: torch.device) -> int:
-    """The device count `mesh_devices` asks for: -1 (any negative) is
-    every visible device, 0 and 1 are one."""
-    if mesh_devices < 0:
-        return torch.cuda.device_count() if dev.type == "cuda" else 1
-    return max(mesh_devices, 1)
-
-
 def run_calculation(
     workdir: str | Path = ".",
     rep: Reporter | None = None,
@@ -84,8 +80,6 @@ def run_calculation(
     t0 = time.perf_counter()
     if cfg is None:
         cfg = read_els_in(workdir)
-    if mesh_width(cfg.mesh_devices, dev) >= 2:
-        raise NotImplementedError("mesh_devices: multi-device runs are not ported yet")
 
     rep.section("Integral read-in")
     rep.write(" Getting number of basis functions...")
@@ -105,6 +99,20 @@ def run_calculation(
 
     res = RunResult(cfg=cfg, sys=sys_, e_nuc=ints.e_nuc)
 
+    # optional device mesh for the CC and triples stages (els.in knob
+    # `mesh_devices`)
+    mesh = None
+    if cfg.mesh_devices and cfg.mesh_devices != 1:
+        ndev = len(pmesh.visible_devices(dev))
+        want = ndev if cfg.mesh_devices < 0 else cfg.mesh_devices
+        if want > ndev:
+            raise ValueError(
+                f"mesh_devices={cfg.mesh_devices} but only {ndev} devices visible"
+            )
+        if want >= 2:
+            mesh = pmesh.default_mesh(want, dev)
+            rep.write(f" Using a {want}-device mesh for CC stages.")
+
     hf = hf_mod.do_rhf(sys_, ints, cfg, rep, workdir, device=dev)
     res.hf = hf
     res.e_hf = hf.e_hf
@@ -118,7 +126,7 @@ def run_calculation(
         if cfg.wants_ccsd and cfg.restricted:
             t_cc = time.perf_counter()
             cc = do_ccsd_spatial(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
-                                 slices=mp2.slices, vvvv_B=mp2.vvvv_B)
+                                 slices=mp2.slices, vvvv_B=mp2.vvvv_B, mesh=mesh)
             mp2.vvvv_B = None  # the limbs' last reader was the CC stage
             rep.stage_time(
                 "Time taken for restricted CCSD:", time.perf_counter() - t_cc
@@ -129,7 +137,7 @@ def run_calculation(
             res.e_highest = cc.e_ccsd
             if cfg.wants_triples:
                 tr = do_ccsd_t_spatial(sys_, cc, cfg, hf.levels, rep,
-                                       precision=triples_tier(cfg))
+                                       precision=triples_tier(cfg), mesh=mesh)
                 res.triples = tr
                 res.e_highest = tr.e_highest
         elif cfg.wants_ccsd:
@@ -141,7 +149,8 @@ def run_calculation(
                     " use a *_spatial calc_type at this scale"
                 )
             t_cc = time.perf_counter()
-            cc = do_ccsd_spinorb(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev)
+            cc = do_ccsd_spinorb(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
+                                 mesh=mesh)
             rep.stage_time(
                 "Time taken for unrestricted CCSD:", time.perf_counter() - t_cc
             )
@@ -149,7 +158,7 @@ def run_calculation(
             res.e_ccsd = cc.e_ccsd
             res.e_highest = cc.e_ccsd
             if cfg.wants_triples:
-                e_t = do_ccsd_t_spinorb(sys_, cc, cfg, hf.levels, rep)
+                e_t = do_ccsd_t_spinorb(sys_, cc, cfg, hf.levels, rep, mesh=mesh)
                 res.e_ccsd_t = e_t
                 res.e_highest = e_t
 

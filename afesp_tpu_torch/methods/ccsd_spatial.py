@@ -27,7 +27,14 @@ transform and v_vvvv exists only as per-chunk-scaled int8 limbs
 (`vvvv_B`): the solve contracts c_oovv against them, the CR-CC chain's
 one v_vvvv term is computed from them once the solve ends
 (`cr_vvvv_term`), and ccsd_precision "f64" is refused, as in the JAX
-package.  The device mesh is not ported.
+package.
+
+Under a device mesh (`mesh`, JAX `:634-662,745-767`) the vvvv term of
+every route is split over the mesh (`parallel/ccsd_shard`): the dense
+and digit products along the output's a on the sub-mesh that fits
+nvirt, the stream tier's limbs along their K chunks over the whole
+mesh, which its CR term then reads too; the rest of the solve runs on
+the first device, with the same one readback an iteration.
 
 DIIS follows ccsd.f90:38-67 through the port's `ops/cc_step`; the state
 keeps the amplitudes that fed the final iteration (`t1_prev`/`t2_prev`),
@@ -300,7 +307,8 @@ def _build_digs(v: Slices, skip_vvvv: bool = False) -> dict:
 
 
 def spatial_presplit(v: Slices, kc: int = 64) -> SpatialHybridConsts:
-    return SpatialHybridConsts(digs=_build_digs(v))
+    # no v_vvvv: a mesh solve holds it split (parallel/ccsd_shard)
+    return SpatialHybridConsts(digs=_build_digs(v, skip_vvvv=v.v_vvvv is None))
 
 
 def spatial_presplit_ext(v: Slices, vvvv_B) -> SpatialHybridConsts:
@@ -311,13 +319,15 @@ def spatial_presplit_ext(v: Slices, vvvv_B) -> SpatialHybridConsts:
 
 
 def _iteration_core(t1, t2, v: Slices, D_ia, D_ijab, consts: SpatialHybridConsts | None = None,
-                    *, vvvv_split: bool = False):
+                    *, vvvv_split: bool = False, vvvv_shards=None):
     """One T1/T2 update, Piecuch Eqs. 43-44 (debug twin ccsd.f90:1487-1530).
 
     vvvv_split (ccsd_precision "hybrid"/"pallas"/"fused") with consts
     runs every slice contraction as a digit GEMM; without consts the
     dominant c_oovv * v_vvvv contraction alone takes the split-f32
-    route (split_einsum), as in the JAX package."""
+    route (split_einsum), as in the JAX package.  vvvv_shards (a mesh
+    solve, `parallel/ccsd_shard`) computes that contraction, on its
+    route, from the operand split over the mesh."""
     digs = consts.digs if vvvv_split and consts is not None else None
     ce, cb, xe = _routes(digs)
     im = _intermediates(t1, t2, v, digs)
@@ -337,7 +347,9 @@ def _iteration_core(t1, t2, v: Slices, D_ia, D_ijab, consts: SpatialHybridConsts
     )
 
     # ---------------- T2 (Eq. 44; ccsd.f90:1497-1526) ----------------
-    if vvvv_split and consts is None:
+    if vvvv_shards is not None:
+        vvvv_term = 0.5 * vvvv_shards(c_oovv)
+    elif vvvv_split and consts is None:
         vvvv_term = 0.5 * split_einsum("efab,ijef->ijab", v.v_vvvv, c_oovv)
     elif consts is not None and consts.vvvv_B is not None:
         # streaming tier: v_vvvv exists only as the transform's limbs
@@ -425,11 +437,19 @@ def _cr_vvvv_term_from_B(t1: torch.Tensor, vvvv_B, *, nv: int) -> torch.Tensor:
     (o*v, v^2) x (v^2, v^2) digit GEMM with the Kronecker left operand
     A[(i,c), (e,c')] = t1[i,e] delta_cc' (exact per digit plane: t1 is
     digitized from f64), streamed over the limbs' K chunks
-    (`gemm_B_pre_streamed`, maxdeg=6).  Returns (c, i, a, b) f64."""
+    (`gemm_B_pre_streamed`, maxdeg=6); limbs split over a mesh
+    (`parallel/ccsd_shard.LimbShards`) take each entry's digit GEMM over
+    its chunks (JAX's `streamed=False` there), the partials added on t1's
+    device.  Returns (c, i, a, b) f64."""
+    from ..parallel.ccsd_shard import LimbShards
+
     o = t1.shape[0]
     eye = torch.eye(nv, dtype=t1.dtype, device=t1.device)
     A = (t1[:, None, :, None] * eye[None, :, None, :]).reshape(o * nv, nv * nv)
-    out = gemm_B_pre_streamed(A, vvvv_B, maxdeg=6)
+    if isinstance(vvvv_B, LimbShards):
+        out = vvvv_B.gemm(A, maxdeg=6)
+    else:
+        out = gemm_B_pre_streamed(A, vvvv_B, maxdeg=6)
     return out.reshape(o, nv, nv, nv).permute(1, 0, 3, 2)
 
 
@@ -443,10 +463,13 @@ def do_ccsd_spatial(
     device: str | torch.device | None = None,
     slices: Slices | None = None,
     vvvv_B=None,
+    mesh=None,
 ) -> CCSDResult:
     """Restricted CCSD (do_ccsd_spatial, ccsd.f90:279-402) on the dense
     MO tensor `eri_mo`, or, with `eri_mo` None, on the streaming tier's
-    `slices` with v_vvvv as its digit limbs `vvvv_B`."""
+    `slices` with v_vvvv as its digit limbs `vvvv_B`; with `mesh`
+    (`parallel.mesh.Mesh`, its first entry `device`) the vvvv term is
+    split over it (module docstring)."""
     dev = default_device(device)
     rep = rep or Reporter()
     rep.section("CCSD")
@@ -486,8 +509,7 @@ def do_ccsd_spatial(
     # "pallas" and "fused" change only the triples tier; the CC solve
     # runs the hybrid digit-GEMM iteration for all three (JAX `:618-623`)
     vvvv_split = cfg.ccsd_precision in ("hybrid", "pallas", "fused")
-    solver = (partial(ccsd_spatial_solver_ext, pre=vvvv_B) if external
-              else get_spatial_solver(vvvv_split=vvvv_split))
+    solver = ccsd_spatial_solver_ext if external else get_spatial_solver(vvvv_split=vvvv_split)
 
     rep.write(f" Time taken: {time.perf_counter() - t_stage:8.6f} s")
     rep.write("")
@@ -497,10 +519,22 @@ def do_ccsd_spatial(
     energy, r0_h = torch.stack([e0, r0]).tolist()
     rep.cc_row("MP1", energy, energy, r0_h)
     state = init_cc_state(t1, t2, cfg.ccsd_diis_n_errmat)
-    state, energies, converged = solver(
-        state, v, D_ia, D_ijab, v.v_oovv, energy, cfg.ccsd_e_tol, cfg.ccsd_t_tol,
-        nerr=cfg.ccsd_diis_n_errmat, maxiter=cfg.ccsd_maxiter, on_iteration=rep.cc_row,
-    )
+    args = (state, v, D_ia, D_ijab, v.v_oovv, energy, cfg.ccsd_e_tol, cfg.ccsd_t_tol)
+    loop = dict(nerr=cfg.ccsd_diis_n_errmat, maxiter=cfg.ccsd_maxiter, on_iteration=rep.cc_row)
+    if mesh is not None and external:
+        from ..parallel.ccsd_shard import ccsd_solve_sharded_ext, shard_vvvv_limbs
+
+        # the CR term below reads the same split limbs as the solve
+        vvvv_B = shard_vvvv_limbs(mesh, vvvv_B)
+        state, energies, converged = ccsd_solve_sharded_ext(mesh, solver, *args, vvvv_B, **loop)
+    elif mesh is not None:
+        from ..parallel.ccsd_shard import ccsd_solve_sharded
+
+        state, energies, converged = ccsd_solve_sharded(mesh, solver, *args, **loop)
+    elif external:
+        state, energies, converged = solver(*args, vvvv_B, **loop)
+    else:
+        state, energies, converged = solver(*args, **loop)
     if energies:
         energy = energies[-1]
     if converged:

@@ -29,6 +29,12 @@ The spin-orbital vvvv is held dense while (2 nvirt)^4 f64 stays within
 JAX package, as its two unique spin blocks (`SpinSlices.vvvv_blocks`,
 `ops/spin.spinorb_vvvv_blocks`): 2 x 1.0 GB at the 116-bf dimer, where
 the dense slice would take 16.2 GB.
+
+Under a device mesh (`mesh`, JAX `:767-776`) the tau.vvvv term is split
+over the sub-mesh that fits nvirt (`parallel/ccsd_shard`): each entry
+holds a slice of the three spin blocks (of the dense slice or of the
+`(aa, ab)` store), along the output's a, and computes its part, on the
+iteration's route; the rest of the solve runs on the first device.
 """
 
 from __future__ import annotations
@@ -134,16 +140,22 @@ def tau_vvvv_blocked(tau: torch.Tensor, vvvv: torch.Tensor | None,
         vs = nv // 2
         A, B = slice(0, vs), slice(vs, None)
         aa_blk, bb_blk, ab_blk = vvvv[A, A, A, A], vvvv[B, B, B, B], vvvv[A, B, A, B]
-    out_aa = es("ijef,efab->ijab", tau[:, :, A, A], aa_blk)
-    out_bb = es("ijef,efab->ijab", tau[:, :, B, B], bb_blk)
+    return _spin_blocks_out(es("ijef,efab->ijab", tau[:, :, A, A], aa_blk),
+                            es("ijef,efab->ijab", tau[:, :, B, B], bb_blk),
+                            es("ijef,efab->ijab", tau[:, :, A, B], ab_blk))
+
+
+def _spin_blocks_out(aa: torch.Tensor, bb: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
+    """0.5 tau.vvvv (o, o, nv, nv) from the three block products
+    tau[A,A].aa, tau[B,B].bb and tau[A,B].ab, each (o, o, vs, vs)."""
     # the (e alpha, f beta) and (e beta, f alpha) contributions are equal
     # by simultaneous antisymmetry of tau and vvvv in (e,f)
-    out_ab = 2.0 * es("ijef,efab->ijab", tau[:, :, A, B], ab_blk)
+    ab = 2.0 * ab
     # <ef||ab> = -<ef||ba>: the (beta a, alpha b) block is the negated
     # transpose of the (alpha a, beta b) block
-    out_ba = -out_ab.permute(0, 1, 3, 2)
-    top = torch.cat([out_aa, out_ab], dim=3)
-    bot = torch.cat([out_ba, out_bb], dim=3)
+    ba = -ab.permute(0, 1, 3, 2)
+    top = torch.cat([aa, ab], dim=3)
+    bot = torch.cat([ba, bb], dim=3)
     return 0.5 * torch.cat([top, bot], dim=2)
 
 
@@ -210,6 +222,9 @@ def presplit_consts(v: SpinSlices, kc: int = 64) -> HybridConsts:
         aa_blk, ab_blk = v.vvvv_blocks
         aa_pre = prechunk_B(aa_blk.reshape(vs * vs, vs * vs), L=5)
         vvvv_pre = (aa_pre, aa_pre, prechunk_B(ab_blk.reshape(vs * vs, vs * vs), L=5))
+    elif v.vvvv is None:
+        # a mesh solve holds vvvv split (parallel/ccsd_shard)
+        vvvv_pre = (None, None, None)
     else:
         vvvv_pre = (
             prechunk_B(v.vvvv[A, A, A, A].reshape(vs * vs, vs * vs), L=5),
@@ -257,11 +272,8 @@ def tau_vvvv_split(tau, vvvv, consts: HybridConsts | None = None, blocks=None):
         aa_blk, bb_blk, ab_blk = vvvv[A, A, A, A], vvvv[B, B, B, B], vvvv[A, B, A, B]
     aa = _split_gemm_chunked(tau[:, :, A, A], aa_blk, B_pre=pre[0])
     bb = _split_gemm_chunked(tau[:, :, B, B], bb_blk, B_pre=pre[1])
-    ab = 2.0 * _split_gemm_chunked(tau[:, :, A, B], ab_blk, B_pre=pre[2])
-    ba = -ab.permute(0, 1, 3, 2)
-    top = torch.cat([aa, ab], dim=3)
-    bot = torch.cat([ba, bb], dim=3)
-    return 0.5 * torch.cat([top, bot], dim=2)
+    ab = _split_gemm_chunked(tau[:, :, A, B], ab_blk, B_pre=pre[2])
+    return _spin_blocks_out(aa, bb, ab)
 
 
 def _w4_split(oovv, Z, consts: HybridConsts | None):
@@ -293,7 +305,9 @@ def _g_split(tau, ovvv, consts: HybridConsts | None):
 
 
 def _iteration_core(t1, t2, v: SpinSlices, D_ia, D_ijab, consts: HybridConsts | None = None,
-                    *, paper_foo: bool, vvvv_split: bool = False):
+                    *, paper_foo: bool, vvvv_split: bool = False, vvvv_shards=None):
+    # vvvv_shards (a mesh solve, parallel/ccsd_shard): the tau.vvvv term,
+    # on this iteration's route, from the operand split over the mesh
     # Sz-block-sparse evaluation (`bs`, ops/spin_einsum.py) wherever the
     # JAX package's f64 iteration uses it: forbidden spin blocks are
     # exact zeros, so skipping them is exact up to f64 reassociation.
@@ -410,12 +424,13 @@ def _iteration_core(t1, t2, v: SpinSlices, D_ia, D_ijab, consts: HybridConsts | 
     tmp_t2 += 0.5 * hs("mnij,mnab->ijab", W_oooo, tau)
     # 0.5 tau_ijef W_abef with W_abef = <ab||ef> + P_(ab) t1[m,b] <ma||ef>,
     # fused: the t1 part factors through G[i,j,m,a] = tau_ijef <ma||ef>
-    if vvvv_split:
+    if vvvv_shards is not None:
+        tmp_t2 += vvvv_shards(tau)
+    elif vvvv_split:
         tmp_t2 += tau_vvvv_split(tau, v.vvvv, consts, blocks=v.vvvv_blocks)
-        G = _g_split(tau, v.ovvv, consts)
     else:
         tmp_t2 += tau_vvvv_blocked(tau, v.vvvv, blocks=v.vvvv_blocks)
-        G = bs("ijef,maef->ijma", tau, v.ovvv)
+    G = _g_split(tau, v.ovvv, consts) if vvvv_split else bs("ijef,maef->ijma", tau, v.ovvv)
     tmp_t2 += 0.5 * (es("ijma,mb->ijab", G, t1) - es("ijmb,ma->ijab", G, t1))
     t2_new = tmp_t2 / D_ijab
 
@@ -499,7 +514,11 @@ def do_ccsd_spinorb(
     rep: Reporter | None = None,
     workdir: str | Path = ".",
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> CCSDSpinorbResult:
+    """Spin-orbital CCSD on the dense MO tensor `eri_mo`; with `mesh`
+    (`parallel.mesh.Mesh`, its first entry `device`) the tau.vvvv term is
+    split over it (module docstring)."""
     dev = default_device(device)
     rep = rep or Reporter()
     rep.section("CCSD")
@@ -562,10 +581,14 @@ def do_ccsd_spinorb(
             )
 
     state = init_cc_state(t1, t2, cfg.ccsd_diis_n_errmat)
-    state, energies, converged = solver(
-        state, v, D_ia, D_ijab, v.oovv, energy, cfg.ccsd_e_tol, cfg.ccsd_t_tol,
-        nerr=cfg.ccsd_diis_n_errmat, maxiter=cfg.ccsd_maxiter, on_iteration=rep.cc_row,
-    )
+    args = (state, v, D_ia, D_ijab, v.oovv, energy, cfg.ccsd_e_tol, cfg.ccsd_t_tol)
+    loop = dict(nerr=cfg.ccsd_diis_n_errmat, maxiter=cfg.ccsd_maxiter, on_iteration=rep.cc_row)
+    if mesh is not None:
+        from ..parallel.ccsd_shard import ccsd_solve_sharded
+
+        state, energies, converged = ccsd_solve_sharded(mesh, solver, *args, **loop)
+    else:
+        state, energies, converged = solver(*args, **loop)
     if energies:
         energy = energies[-1]
     if converged:

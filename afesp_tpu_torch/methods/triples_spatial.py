@@ -3,7 +3,8 @@ CR-CCSD[T]/(T) — Piecuch et al., CPC 149 (2002) 71-96.
 
 Port of `afesp_tpu/methods/triples_spatial.py` (`TriplesResult`, `_xbar`,
 `cr_intermediates` in f64, `_islice_terms`, `strict_spatial_plan`,
-`_triples_total_spatial`, `pick_spatial_jlen`, `do_ccsd_t_spatial`).
+`_triples_total_spatial`, `pick_spatial_jlen`, `do_ccsd_t_spatial` with
+its mesh branch `:546-551,673-683`).
 Re-implements do_ccsd_t_spatial (ccsd.f90:2018-2293) and
 build_cr_ccsd_t_intermediates (ccsd.f90:2338-2551), with the reference's
 quirks reproduced deliberately: the I_ooov'' virtual sum cut at nocc
@@ -30,7 +31,17 @@ from `ccsd_precision` as the JAX driver does (`triples_tier`): "pallas"
 and "fused" name their tiers; "f64" and "hybrid" get the size default,
 so on a card "f64" runs K3 or K4 (every CUDA tier is f64).  A kernel
 that fails raises: the JAX package's VMEM-degrade memo is not carried
-over.  The device mesh is not ported.
+over.
+
+Under a device mesh (`mesh`) each entry runs the tier one device would
+run on its contiguous share of that tier's work list
+(`parallel/triples_shard.triples_spatial_sharded`): the sorted triples
+with their orbit weights (K3, K4) or the (i, j-slab) grid ("pallas",
+K5; "f64"), the six sums added on the first entry.  JAX swaps "fused"
+and "tiled" for its slab tiers under a mesh (JAX `:549-551,681-682`),
+a limit of Pallas under shard_map, not of the physics; the port keeps
+its one-device tier choice, and `precision_used` names the tier that
+ran.
 """
 
 from __future__ import annotations
@@ -321,17 +332,19 @@ def strict_spatial_plan(nocc: int):
 
 def _triples_total_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I_vovv_pp, I_ooov_pp,
                            *, nocc: int, jlen: int, doing_T: bool, doing_R: bool,
-                           doing_CR: bool, precision: str = "f64") -> tuple:
-    """The six reductions over the full (i, j-slab) grid, in _SUM_KEYS
-    order, as 0-d tensors.  jlen must divide nocc."""
+                           doing_CR: bool, precision: str = "f64", cells=None) -> tuple:
+    """The six reductions over the (i, j-slab) grid, in _SUM_KEYS order,
+    as 0-d tensors: the full grid, or the (i0, j0) slabs of `cells` (a
+    mesh entry's share).  jlen must divide nocc."""
     assert nocc % jlen == 0
     args = (t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I_vovv_pp, I_ooov_pp)
+    if cells is None:
+        cells = [(i0, j0) for i0 in range(nocc) for j0 in range(0, nocc, jlen)]
     sums = [t1.new_zeros(()) for _ in _SUM_KEYS]
-    for i0 in range(nocc):
-        for j0 in range(0, nocc, jlen):
-            acc = _islice_terms(i0, j0, *args, jlen=jlen, doing_T=doing_T, doing_R=doing_R,
-                                doing_CR=doing_CR, precision=precision)
-            sums = [s + acc[k] if k in acc else s for s, k in zip(sums, _SUM_KEYS)]
+    for i0, j0 in cells:
+        acc = _islice_terms(i0, j0, *args, jlen=jlen, doing_T=doing_T, doing_R=doing_R,
+                            doing_CR=doing_CR, precision=precision)
+        sums = [s + acc[k] if k in acc else s for s, k in zip(sums, _SUM_KEYS)]
     return tuple(sums)
 
 
@@ -372,10 +385,12 @@ def do_ccsd_t_spatial(
     levels: np.ndarray,
     rep: Reporter | None = None,
     precision: str | None = None,
+    mesh=None,
 ) -> TriplesResult:
     """The restricted triples family on the device of the amplitudes.
     precision: "fused" | "tiled" | "pallas" | "f64" ("hybrid" is taken
-    as "f64"); None picks by device and nvirt (module docstring)."""
+    as "f64"); None picks by device and nvirt (module docstring).  With
+    `mesh` the tier runs on each entry's share of its work list."""
     t1, t2 = cc.t1, cc.t2
     dev = t1.device
     nocc, nvirt = sys_.nocc, sys_.nvirt
@@ -409,22 +424,25 @@ def do_ccsd_t_spatial(
     else:
         I_vovv_pp = I_ooov_pp = None
 
-    if precision in ("fused", "tiled"):
+    if precision in ("pallas", "f64") and not doing_CR:
+        # _islice_terms reads them only for CR
+        I_vovv_pp = t1.new_zeros((nvirt, nocc, nvirt, nvirt))
+        I_ooov_pp = t1.new_zeros((nocc, nocc, nocc, nvirt))
+    targs = (t1, t2, v.v_vvov, v.v_oovo, v.v_oovv, e_o, e_v, I_vovv_pp, I_ooov_pp)
+    jlen = pick_spatial_jlen(nocc, nvirt, precision)
+    if mesh is not None:
+        from ..parallel.triples_shard import triples_spatial_sharded
+
+        totals = triples_spatial_sharded(mesh, *targs, nocc=nocc, jlen=jlen,
+                                         precision=precision, **flags)
+    elif precision in ("fused", "tiled"):
         (si, sj, sk), w = _sorted_plan(nocc, dev)
         kernel = triples_fused_spatial if precision == "fused" else triples_tiled_spatial
-        s = kernel(t1, t2, v.v_vvov, v.v_oovo, v.v_oovv, e_o, e_v, I_vovv_pp, I_ooov_pp,
-                   si, sj, sk, w, **flags)
+        s = kernel(*targs, si, sj, sk, w, **flags)
         totals = (s[0], s[0] + s[1], s[2], s[2] + s[3], s[4], s[4] + s[5])
     else:
-        if not doing_CR:
-            # _islice_terms reads them only for CR
-            I_vovv_pp = t1.new_zeros((nvirt, nocc, nvirt, nvirt))
-            I_ooov_pp = t1.new_zeros((nocc, nocc, nocc, nvirt))
-        jlen = pick_spatial_jlen(nocc, nvirt, precision)
-        totals = _triples_total_spatial(
-            t1, t2, v.v_vvov, v.v_oovo, v.v_oovv, e_o, e_v, I_vovv_pp, I_ooov_pp,
-            nocc=nocc, jlen=jlen, precision=precision, **flags,
-        )
+        totals = _triples_total_spatial(*targs, nocc=nocc, jlen=jlen, precision=precision,
+                                        **flags)
     # a sum whose variant is off is 0 on every tier
     on = dict(e_T=True, e_TT=doing_T, D_T=doing_R or doing_CR,
               D_TT=(doing_R or doing_CR) and doing_T, e_CR=doing_CR, e_CRT=doing_CR and doing_T)

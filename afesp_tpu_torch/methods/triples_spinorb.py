@@ -2,7 +2,8 @@
 
 Port of `afesp_tpu/methods/triples_spinorb.py:36-489`
 (`strict_triple_list`, `strict_plan`, `_chunk_panels`,
-`_strict_chunk_energy`, `_triples_total_strict`, `do_ccsd_t_spinorb`).
+`triples_chunk_energies`, `_strict_chunk_energy`, `_triples_total_strict`,
+`do_ccsd_t_spinorb` with its mesh branch `:431-438`).
 Re-implements do_ccsd_t_spinorb (ccsd.f90:1812-1922):
 
   t3d(abc)*D = P(i/jk)P(a/bc) t1[i,a] <jk||bc>
@@ -23,6 +24,12 @@ The default is "fused" on a CUDA device (no nvirt cap) and "f64" on the
 CPU.  "hybrid" (f32 panel GEMMs on the TPU) is taken as "f64".  A kernel
 that fails raises: the JAX package's degrade-to-hybrid memo is not
 carried over.
+
+Under a device mesh each entry runs the tier one device would run (the
+choice above, kept) on its contiguous share of the strict list
+(`parallel/triples_shard.triples_total_sharded`: K1 per share, or the
+share's chunks through the panels and K2), the partial sums added on the
+first entry.
 """
 
 from __future__ import annotations
@@ -70,6 +77,27 @@ def _chunk_panels(ii, jj, kk, t1, t2, vovv, ovoo, oovv):
         + es("mCcb,maC->Cabc", t2[:, kk], ovoo[:, :, jj, ii])
     )
     return t3c, t3d
+
+
+def triples_chunk_energies(ii, jj, kk, t1, t2, vovv, ovoo, oovv, e_o, e_v) -> torch.Tensor:
+    """Per-triple E(T) contributions, the 1/36 included (ccsd.f90:1910),
+    for a chunk of (i,j,k) triples of the full cube: the (C,) vector the
+    caller reduces (`parallel/triples_shard.triples_energy_sharded`, the
+    full-cube oracle)."""
+    t3c, t3d = _chunk_panels(ii, jj, kk, t1, t2, vovv, ovoo, oovv)
+
+    # P(a/bc): x - x(bac) - x(cba) (ccsd.f90:1897-1907)
+    def p_abc(x):
+        return x - x.permute(0, 2, 1, 3) - x.permute(0, 3, 2, 1)
+
+    t3d, t3c = p_abc(t3d), p_abc(t3c)
+    D = (
+        (e_o[ii] + e_o[jj] + e_o[kk])[:, None, None, None]
+        - e_v[None, :, None, None]
+        - e_v[None, None, :, None]
+        - e_v[None, None, None, :]
+    )
+    return torch.sum(t3c * (t3c / D + t3d / D), dim=(1, 2, 3)) / 36.0
 
 
 def strict_triple_list(nocc: int):
@@ -139,10 +167,13 @@ def do_ccsd_t_spinorb(
     levels: np.ndarray,
     rep: Reporter | None = None,
     precision: str | None = None,
+    mesh=None,
 ) -> float:
     """Returns e_ccsd_t = e_ccsd + E(T) (ccsd.f90:1917), on the device of
     the amplitudes.  precision: "fused" | "pallas" | "f64" ("hybrid" is
-    taken as "f64"); None picks "fused" on CUDA and "f64" on the CPU."""
+    taken as "f64"); None picks "fused" on CUDA and "f64" on the CPU.
+    With `mesh` the tier runs on each entry's share of the triples
+    (module docstring)."""
     t1 = cc.t1
     dev = t1.device
     if precision is None:
@@ -160,15 +191,20 @@ def do_ccsd_t_spinorb(
     v = cc.slices
     # <fi||bc> slice: vovv; <ma||jk>: ovoo; <jk||bc>: oovv (ccsd.f90:1834-1835)
     args = (t1, cc.t2, v.vovv, v.ovoo, v.oovv, lv[:nocc], lv[nocc:])
-    if precision == "fused":
-        ii, jj, kk = strict_triple_list(nocc)
-        clen = len(ii)
-    else:
-        ii, jj, kk, clen = strict_plan(nocc, t1.shape[1])
     e_t = 0.0
-    if len(ii):
-        idx = (torch.as_tensor(x, dtype=torch.long, device=dev) for x in (ii, jj, kk))
-        e_t = float(_triples_total_strict(*args, *idx, clen=clen, precision=precision))
+    if mesh is not None:
+        from ..parallel.triples_shard import triples_total_sharded
+
+        e_t = triples_total_sharded(mesh, *args, nocc=nocc, precision=precision)
+    else:
+        if precision == "fused":
+            ii, jj, kk = strict_triple_list(nocc)
+            clen = len(ii)
+        else:
+            ii, jj, kk, clen = strict_plan(nocc, t1.shape[1])
+        if len(ii):
+            idx = (torch.as_tensor(x, dtype=torch.long, device=dev) for x in (ii, jj, kk))
+            e_t = float(_triples_total_strict(*args, *idx, clen=clen, precision=precision))
     e_ccsd_t = e_t + cc.e_ccsd
     rep.write(
         f" Unrestricted CCSD(T) correlation energy (Hartree): {e_ccsd_t:15.9f}"

@@ -5,7 +5,8 @@ incrementally maintained Gram matrix, the fixed-size bordered solve
 (`gauss_solve`, with its singular-pivot guard), the extrapolation, and
 `make_cc_solver` with its `precompute` hook (`:199-237`) and
 `make_cc_solver_pre` (`:239`), whose hook also takes an operand built
-outside the solve: loop-constant
+outside the solve (each solve keeps its pieces as `solve.parts`, from
+which `parallel/ccsd_shard` builds the multi-device solve): loop-constant
 operands (the hybrid iterations' digitized ERI slices) are built once
 per solve and handed to every iteration.  The JAX package compiles the
 whole solve into one `lax.while_loop` (and pins the consts with an
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -139,6 +140,15 @@ def cc_step(
     return new_state, torch.stack([e, rms2])
 
 
+class SolverParts(NamedTuple):
+    """What a solve was made of (`solve.parts`): the multi-device solve
+    (parallel/ccsd_shard) rebuilds it with its vvvv term split."""
+
+    iteration_fn: Callable
+    energy_fn: Callable
+    precompute: Callable | None
+
+
 def make_cc_solver(iteration_fn: Callable, energy_fn: Callable,
                    precompute: Callable | None = None) -> Callable:
     """The DIIS-accelerated CC fixed-point loop (`make_cc_solver`,
@@ -179,6 +189,7 @@ def make_cc_solver(iteration_fn: Callable, energy_fn: Callable,
                 return state, energies, True
         return state, energies, False
 
+    solve.parts = SolverParts(iteration_fn, energy_fn, precompute)
     return solve
 
 
@@ -197,4 +208,5 @@ def make_cc_solver_pre(iteration_fn: Callable, energy_fn: Callable,
         inner = make_cc_solver(iteration_fn, energy_fn, lambda v: precompute(v, pre))
         return inner(state, v, D_ia, D_ijab, oovv, e0, e_tol, t_tol, **loop)
 
+    solve.parts = SolverParts(iteration_fn, energy_fn, precompute)  # precompute(v, pre)
     return solve

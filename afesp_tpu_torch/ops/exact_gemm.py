@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from ..device import F64
+from ..device import F64, current
 
 F32 = torch.float32
 
@@ -181,9 +181,10 @@ def digit_pair_gemm(a: torch.Tensor, b: torch.Tensor, route: str = "int8") -> to
     digit_pair_gemm.launches += 1
     if route == "int8":
         out = None
-        for k0 in range(0, K, _MAX_K):
-            p = _int_mm(a[:, k0:k0 + _MAX_K], b[k0:k0 + _MAX_K]).to(F64)
-            out = p if out is None else out + p
+        with current(a.device):  # the card of a mesh entry, current
+            for k0 in range(0, K, _MAX_K):
+                p = _int_mm(a[:, k0:k0 + _MAX_K], b[k0:k0 + _MAX_K]).to(F64)
+                out = p if out is None else out + p
         return out
     if route != "f32":
         raise ValueError(f"digit route {route!r}: one of {ROUTES}")

@@ -73,4 +73,9 @@ def spin_blocked_einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
         axis = len(prefix)
         return torch.cat([assemble(prefix + (0,)), assemble(prefix + (1,))], dim=axis)
 
-    return assemble(())
+    result = assemble(())
+    # the recursive closure refers to itself through its cell: empty the
+    # cell, or the cycle keeps the operands and blocks alive (device
+    # memory included) until the garbage collector runs
+    del assemble
+    return result

@@ -19,9 +19,11 @@ counts the calls that launched its kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from ..device import current
 from ._build import load
 
 F64 = torch.float64
@@ -53,6 +55,19 @@ def _raise_on(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+def on_its_device(wrapper):
+    """Run a kernel wrapper with the device of its first argument
+    current: its launches go into that device's stream, which fails from
+    another device's context (a mesh entry on a second card)."""
+
+    @functools.wraps(wrapper)
+    def run(*args, **kwargs):
+        with current(args[0].device):
+            return wrapper(*args, **kwargs)
+
+    return run
+
+
 # --------------------------------------------------------------- K2 -----
 
 
@@ -73,6 +88,7 @@ def triples_finale_plain(t3c, t3d, eo_sum, e_v) -> torch.Tensor:
     return torch.sum(x * (x + y) / D)
 
 
+@on_its_device
 def triples_finale(t3c, t3d, eo_sum, e_v) -> torch.Tensor:
     """K2.  t3c/t3d: (P, v, v, v) panels; eo_sum: (P,) e_i+e_j+e_k per
     panel; e_v: (v,).  Returns sum P(t3c)*(P(t3c)+P(t3d))/D."""
@@ -207,6 +223,7 @@ def triples_fused_plain(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk) -> torch
     return total
 
 
+@on_its_device
 def triples_fused(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk, split=None) -> torch.Tensor:
     """K1.  Spin-orbital (T) over the given (i,j,k) triples: t1 (o,v),
     t2/oovv (o,o,v,v), vovv (v,o,v,v), ovoo (o,v,o,o), e_o (o,), e_v (v,),

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ._build import load
-from .triples_cuda import F64, _check, _ptr, _raise_on, _stream, _VP
+from .triples_cuda import F64, _check, _ptr, _raise_on, _stream, _VP, on_its_device
 
 # Static term tables of the twelve joint (occ, virt) permutations of the
 # two base contractions (ccsd.f90:2168-2173 / 2188-2193), copied from
@@ -294,6 +294,7 @@ def triples_finale_spatial_plain(t3_D, m3, mats, vecs, eo_sum, t1_i, e_v, *,
     return torch.stack(s) / 3.0
 
 
+@on_its_device
 def triples_finale_spatial(t3_D, m3, mats, vecs, eo_sum, t1_i, e_v, *,
                            doing_T: bool, doing_Y: bool, doing_CR: bool) -> torch.Tensor:
     """K5.  t3_D/m3: (P, v, v, v) numerator cubes (m3 read only for CR);
@@ -599,6 +600,7 @@ def triples_tiled_spatial_plain(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo
     )
 
 
+@on_its_device
 def triples_tiled_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, jj, kk, w,
                           *, doing_T: bool, doing_R: bool, doing_CR: bool,
                           split=None) -> torch.Tensor:
@@ -686,6 +688,7 @@ def triples_fused_spatial_plain(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo
     )
 
 
+@on_its_device
 def triples_fused_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, Iv, Jo, ii, jj, kk, w,
                           *, doing_T: bool, doing_R: bool, doing_CR: bool,
                           split=None) -> torch.Tensor:

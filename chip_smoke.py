@@ -116,11 +116,31 @@ prints one line with its wall time:
      and timed on the stream path's amplitudes; each prints its wall,
      stage walls, CC ms an iteration and peak memory beside the dense
      hybrid run's;
- 15. one JSON line of every path's metrics (`paths`: wall, CC iteration
-     ms, CCSD TFLOP/s by flops.py, peak memory), and one of the kernels,
-     a row for each kernel at each shape timed: launches on the path
-     that runs it, times, bound, the bound's share of the time and
-     errors, and the splits of K1, K3 and K4.
+ 15. the device mesh (`mesh_*` phases): with `parallel.mesh.
+     visible_devices` giving cuda:0 twice, `mesh_devices = 2` added to
+     the els.in runs the CC stages on a mesh that lists the one card
+     twice, which runs every sharded code path and every kernel once per
+     entry (a speed or memory gain needs two cards; none is measured):
+     `mesh_pvtz_*`, both pVTZ calc_types at "f64" and at "hybrid" (K1 or
+     K3 once an entry), and `mesh_pvtz_pallas_tiers`, the "pallas" tiers
+     on the f64 runs' amplitudes (K2 on each entry's chunks, K5 on each
+     entry's slabs); `mesh_dimer_hybrid`, the dimer's committed els.in
+     (the vvvv digit GEMMs split over both entries); `mesh_spinorb_dimer`,
+     the spin-orbital dimer at "f64" on the (aa, ab) store;
+     `mesh_dimer_stream`, the dimer on the streaming tier (the limbs' 53
+     chunks padded to 54 and split, each entry's bytes printed beside the
+     total, the CR term from the split limbs); each held to its JAX file
+     as its one-device phase is, within 1e-12 of the port's one-device run
+     with equal counts, and the mesh line printed; `mesh_trimer_k4`, K4
+     once on each entry at the trimer path's shape on its amplitudes,
+     within 1e-12 of one launch;
+ 16. one JSON line of every path's metrics (`paths`: wall, CC iteration
+     ms, CCSD TFLOP/s by flops.py, peak memory; the mesh paths marked
+     with the card's name and power limit), and one of the kernels, a
+     row for each kernel at each shape timed: launches on the path that
+     runs it, its launches over the mesh phases, times, bound, the
+     bound's share of the time and errors, and the splits of K1, K3 and
+     K4.
 
 Each hybrid path (`hybrid_path`) is held to the JAX package's CPU run at
 "hybrid" (`expected_jax_cpu*_hybrid.json`, tools/make_torch_dimer_fixture.py
@@ -189,6 +209,15 @@ SIX_TRIPLES = ("e_ccsd_t", "e_ccsd_tt", "e_rccsd_t", "e_rccsd_tt", "e_crccsd_t",
                "e_crccsd_tt")
 # each path's energies, for the stream-vs-dense checks
 PATH_VALUES: dict = {}
+# each one-device path's results (result_values), for the mesh phases
+ONE_DEVICE: dict = {}
+# the mesh phases: the width asked for in els.in, and how far a mesh run
+# may be from the same path on one device (only the order of f64 sums
+# differs: the shares' partial sums, the limbs' chunk partials)
+MESH_WIDTH = 2
+MESH_TOL = 1e-12
+# each kernel's launches over the mesh phases
+MESH_LAUNCHES: dict = {}
 DIMER_BASIS = "cc-pvtz"  # tools/make_dimer.py
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the f64 tensor-core
 # peak (the f64 work of every kernel could at best run there)
@@ -868,6 +897,7 @@ def spinorb_dimer_phases(torch, dev, kernels: dict, wd: Path) -> tuple[dict, lis
         others = {n: c for n, c in launches.items() if n != "triples_fused" and c}
         check(not others, f"other kernels launched on the spin-orbital dimer path: {others}")
         metrics = cc_metrics(text, res, wall, peak)
+        ONE_DEVICE["spinorb_dimer_path"] = result_values(res, launches)
         e_t = res.e_ccsd_t - res.e_ccsd
         errs = {label: abs(val - want["breakdown_values"][label])
                 for label, val in printed_values(text, want["breakdown"]).items()}
@@ -1062,6 +1092,7 @@ def trimer_phases(torch, dev, kernels: dict) -> tuple[int, list]:
             check(list(rows) == ["triples_tiled_spatial"], f"trimer kernel rows {list(rows)}")
             info.update({n: json.dumps(r) for n, r in rows.items()})
         rows["triples_tiled_spatial"]["launches"] = launches["triples_tiled_spatial"]
+        mesh_trimer_k4(torch, args, flags, nocc, dev)
         del res, cc, v, args, Iv, Jo
         torch.cuda.empty_cache()
         # the committed els.in as written: the digit-GEMM CCSD
@@ -1176,6 +1207,7 @@ def hybrid_path(torch, name: str, wd: Path, kernels: dict, kernel: str, f64: dic
                   if n not in (kernel, "digit_pair_gemm") and c}
         check(not others, f"{name}: other kernels launched: {others}")
         metrics = cc_metrics(text, res, wall, peak)
+        ONE_DEVICE[name] = result_values(res, launches)
         if res.cfg.restricted:
             PATH_VALUES[name] = {"e_mp2": res.e_mp2, "e_ccsd": res.e_ccsd} | {
                 k: getattr(res.triples, k) for k in SIX_TRIPLES + ("D_T", "D_TT")}
@@ -1349,6 +1381,7 @@ def stream_path(torch, name: str, wd: Path, kernels: dict, kernel: str, dense: s
                   if n not in (kernel, "digit_pair_gemm") and c}
         check(not others, f"{name}: other kernels launched: {others}")
         metrics = cc_metrics(text, res, wall, peak)
+        ONE_DEVICE[name] = result_values(res, launches)
         metrics["stage_walls_s"] = path_walls(text, "restricted CCSD:",
                                               "restricted completely renormalised",
                                               cc.iterations)
@@ -1594,6 +1627,7 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
             check(sres.cc.iterations == spatial["cc_iterations"],
                   f"CC iterations {sres.cc.iterations} vs JAX {spatial['cc_iterations']}")
             check(tr.precision_used == "fused", f"spatial tier {tr.precision_used}")
+            ONE_DEVICE["spatial_path"] = result_values(sres)
             check(spatial_launches["triples_fused_spatial"] > 0,
                   "triples_fused_spatial not launched on the spatial path")
             stage_walls = [ln.strip() for ln in buf.getvalue().splitlines()
@@ -1629,6 +1663,8 @@ def spatial_phases(torch, kernels: dict, spatial: dict, device=None) -> tuple[in
                             for k in spatial["triples"])
                 check(err_f <= TRIPLES_TOL, f"{tier} tier off the fused tier by {err_f:.3e}")
                 check(err_j <= TRIPLES_TOL, f"{tier} tier off JAX's f64 by {err_j:.3e}")
+                ONE_DEVICE[f"spatial_{tier}_tier"] = {k: getattr(ttr, k)
+                                                      for k in SIX_TRIPLES + ("D_T", "D_TT")}
                 info.update(wall_s=f"{wall:.3f}", max_abs_vs_fused=f"{err_f:.3e}",
                             max_abs_vs_jax_f64=f"{err_j:.3e}",
                             launches=json.dumps({kname: tier_launches[kname]}))
@@ -1682,6 +1718,334 @@ def amplitudes_restart(torch, spatial: dict) -> None:
                     restart_on_card_from_cpu_file=iters["cpu"][1],
                     cc_iterations_fresh_card=iters["cuda"][0],
                     restart_on_card_from_card_file=iters["cuda"][1])
+
+
+def result_values(res, launches: dict | None = None) -> dict:
+    """A path's energies and counts, for the mesh phases' comparison with
+    the same path on one device."""
+    vals = {"e_hf": res.e_hf, "e_mp2": res.e_mp2, "e_ccsd": res.e_ccsd,
+            "total_energy": res.total_energy, "scf_iterations": res.hf.iterations,
+            "cc_iterations": res.cc.iterations}
+    if res.triples is not None:
+        vals |= {k: getattr(res.triples, k) for k in SIX_TRIPLES + ("D_T", "D_TT")}
+        vals["t1_diagnostic"] = res.t1_diagnostic
+    else:
+        vals["e_ccsd_t"] = res.e_ccsd_t
+    if launches is not None:
+        vals["digit_pair_gemm"] = launches["digit_pair_gemm"]
+    return vals
+
+
+def mesh_els(els: str) -> str:
+    """`els` with `mesh_devices = MESH_WIDTH` added."""
+    head, _, tail = els.rpartition("/")
+    return head + f"mesh_devices = {MESH_WIDTH},\n/" + tail
+
+
+@contextmanager
+def two_entry_mesh(dev):
+    """parallel.mesh.visible_devices giving `dev` twice: the driver's
+    width rule then builds a mesh that lists the one card twice, which
+    runs every sharded code path and every kernel per entry."""
+    from afesp_tpu_torch.parallel import mesh as pmesh
+
+    visible = pmesh.visible_devices
+    pmesh.visible_devices = lambda d: [dev] * MESH_WIDTH
+    try:
+        yield pmesh.Mesh((dev,) * MESH_WIDTH)
+    finally:
+        pmesh.visible_devices = visible
+
+
+def jax_gate(name: str, want: dict, res, text: str, kind: str) -> dict:
+    """A run against the JAX file `want`, as its one-device phase holds
+    it: every printed breakdown value within ENERGY_TOL (the totals where
+    the file has no breakdown values), equal SCF and CC iteration counts,
+    and by `kind`: "f64" the triples within ENERGY_TOL of JAX's f64 ones;
+    "hybrid" CCSD correlation within HYBRID_CCSD_TOL and the triples
+    within HYBRID_TRIPLES_TOL of JAX's f64 triples on its amplitudes;
+    "stream" MP2, CCSD and the six triples within STREAM_TOL and the
+    prelude's count.  Returns the errors."""
+    import re
+
+    if "breakdown_values" in want:
+        errs = {label: abs(val - want["breakdown_values"][label])
+                for label, val in printed_values(text, want["breakdown"]).items()}
+        check(len(errs) == len(want["breakdown_values"]),
+              f"{name}: the breakdown lacks a line of the reference's")
+    else:
+        e0 = res.e_hf + res.e_nuc
+        got = {"e_hf_total": e0, "e_mp2_total": e0 + res.e_mp2,
+               "e_ccsd_total": e0 + res.e_ccsd, "e_ccsd_t_total": e0 + res.e_ccsd_t}
+        errs = {k: abs(v - want[k]) for k, v in got.items()}
+    e_t = None if res.cfg.restricted else res.e_ccsd_t - res.e_ccsd
+    tol = ENERGY_TOL
+    if kind == "stream":
+        tol = STREAM_TOL
+        ref = {"e_mp2": want["e_mp2_corr"], "e_ccsd": want["e_ccsd_corr"]} | {
+            k: want["triples"][k] for k in SIX_TRIPLES}
+        got = {"e_mp2": res.e_mp2, "e_ccsd": res.e_ccsd} | {
+            k: getattr(res.triples, k) for k in SIX_TRIPLES}
+        prelude = re.search(r"Device SCF prelude: (\d+) iterations", text)
+        check(prelude is not None and int(prelude.group(1)) == want["prelude_iterations"],
+              f"{name}: prelude iterations vs JAX {want['prelude_iterations']}")
+    elif kind == "hybrid":
+        tol = HYBRID_TRIPLES_TOL
+        check(abs(res.e_ccsd - want["e_ccsd_corr"]) <= HYBRID_CCSD_TOL,
+              f"{name}: CCSD corr {res.e_ccsd!r} vs JAX hybrid {want['e_ccsd_corr']!r}")
+    if kind != "stream" and res.cfg.restricted:
+        ref = dict(want["triples"])
+        got = {k: getattr(res.triples, k) for k in ref}
+    elif kind != "stream":
+        ref = {"e_t": want["spinorb_triples"]["e_t_f64"] if "spinorb_triples" in want
+               else want["e_t_f64"]}
+        got = {"e_t": e_t}
+    for k in ref:
+        err = abs(got[k] - ref[k])
+        check(err <= tol, f"{name} {k}: off JAX's value by {err:.3e}")
+        errs[f"{k}_vs_jax"] = err
+    for key, err in errs.items():
+        check(err <= ENERGY_TOL, f"{name} {key}: off the JAX value by {err:.3e}")
+    check(res.hf.iterations == want["scf_iterations"],
+          f"{name}: SCF iterations {res.hf.iterations} vs JAX {want['scf_iterations']}")
+    check(res.cc.iterations == want["cc_iterations"],
+          f"{name}: CC iterations {res.cc.iterations} vs JAX {want['cc_iterations']}")
+    return errs
+
+
+def mesh_path(torch, name: str, wd: Path, kernels: dict, base: str, kernel: str, want: dict,
+              kind: str, smi: str, dev) -> tuple:
+    """One path under a mesh: the els.in in `wd` with mesh_devices = 2
+    added, run_calculation on the card with the visible devices cuda:0
+    twice (two_entry_mesh), AFESP_FORCE_STREAM=1 for `kind` "stream".
+    Held to the JAX file `want` as the one-device path is (jax_gate), to
+    the port's one-device run `base` within MESH_TOL (equal counts), the
+    mesh line printed, `kernel` launched once on each entry and no other
+    kernel.  Returns (res, its metrics marked with the card)."""
+    import os
+
+    from afesp_tpu_torch.io import fastparse
+    from afesp_tpu_torch.parallel import ccsd_shard as CSH
+
+    els = (wd / "els.in").read_text()
+    limbs = []
+    shard_limbs = CSH.shard_vvvv_limbs
+    info = {}
+    with phase(name, info):
+        old = os.environ.get("AFESP_FORCE_STREAM")
+        try:
+            (wd / "els.in").write_text(mesh_els(els))
+            if kind == "stream":
+                os.environ["AFESP_FORCE_STREAM"] = "1"
+            CSH.shard_vvvv_limbs = lambda m, b: limbs.append(shard_limbs(m, b)) or limbs[-1]
+            fastparse.ROUTES.clear()
+            held_before = torch.cuda.memory_allocated()
+            with two_entry_mesh(dev) as mesh:
+                res, text, wall, peak, launches = run_path(torch, wd, kernels)
+        finally:
+            CSH.shard_vvvv_limbs = shard_limbs
+            (wd / "els.in").write_text(els)
+            if old is None:
+                os.environ.pop("AFESP_FORCE_STREAM", None)
+            else:
+                os.environ["AFESP_FORCE_STREAM"] = old
+        scanner_routes_check(fastparse, name, 3)
+        check(text.count(f" Using a {MESH_WIDTH}-device mesh for CC stages.") == 1,
+              f"{name}: no mesh line in the report")
+        errs = jax_gate(name, want, res, text, kind)
+        one = ONE_DEVICE[base]
+        vs_one = {k: abs(v - one[k]) for k, v in result_values(res).items()
+                  if not k.endswith("iterations")}
+        for k, err in vs_one.items():
+            check(err <= MESH_TOL, f"{name} {k}: off the one-device {base} by {err:.3e}")
+        for k in ("scf_iterations", "cc_iterations"):
+            check(result_values(res)[k] == one[k], f"{name}: {k} differ from {base}'s")
+        check(launches[kernel] == MESH_WIDTH,
+              f"{name}: {kernel} launched {launches[kernel]} times, not once an entry")
+        others = {n: c for n, c in launches.items() if n not in (kernel, "digit_pair_gemm") and c}
+        check(not others, f"{name}: other kernels launched: {others}")
+        MESH_LAUNCHES[kernel] = MESH_LAUNCHES.get(kernel, 0) + launches[kernel]
+        sub = CSH._fitting_mesh(mesh, res.cc.t2.shape[3])
+        metrics = cc_metrics(text, res, wall, peak) | {
+            "card": smi, "held_before_gb": round(held_before / 1e9, 3)}
+        info.update(wall_s=metrics["wall_s"], cc_iter_ms=metrics["cc_iter_ms"],
+                    peak_memory_gb=metrics["peak_memory_gb"],
+                    held_before_gb=f"{held_before / 1e9:.3f}",
+                    peak_above_held_gb=f"{(peak - held_before) / 1e9:.3f}",
+                    ccsd_entries=0 if sub is None else sub.size,
+                    launches=json.dumps(launches),
+                    one_device_digit_pairs=one.get("digit_pair_gemm"),
+                    max_abs_vs_jax=f"{max(errs.values()):.3e}",
+                    max_abs_vs_one_device=f"{max(vs_one.values()):.3e}",
+                    scf_iterations=res.hf.iterations, cc_iterations=res.cc.iterations)
+        if limbs:
+            check(all(x is limbs[0] for x in limbs), f"{name}: the limbs were split twice")
+            per = limbs[0].nbytes()
+            check(all(b * MESH_WIDTH == sum(per) for b in per),
+                  f"{name}: the limb shards hold {per} bytes, not 1/{MESH_WIDTH} each")
+            metrics["limb_bytes_per_entry"] = per
+            info.update(limb_chunks_padded=limbs[0].nc, limb_bytes_per_entry=json.dumps(per),
+                        limb_bytes_total=sum(per))
+    for line in text.splitlines():
+        if line.lstrip().startswith("Time taken for"):
+            print(f"  {line.strip()}", flush=True)
+    return res, metrics
+
+
+def mesh_pvtz_phases(torch, kernels: dict, spatial: dict, smi: str, dev) -> dict:
+    """mesh_pvtz: both pVTZ calc_types at "f64" and at "hybrid" under the
+    two-entry mesh (mesh_path; K1 or K3 once an entry), then the "pallas"
+    tiers on the f64 runs' amplitudes under the same mesh: K2 on each
+    entry's share of the strict triples (chunks), K5 on each entry's
+    share of the (i, j-slab) grid, each within MESH_TOL of its one-device
+    tier and TRIPLES_TOL of JAX's f64 values.  Returns the paths'
+    metrics."""
+    import io
+
+    from afesp_tpu_torch.io.report import Reporter
+    from afesp_tpu_torch.methods import triples_spatial as TS
+    from afesp_tpu_torch.methods import triples_spinorb as T
+
+    paths, runs = {}, {}
+    cases = (("mesh_pvtz_spinorb", None, "main_path", "triples_fused",
+              json.loads((FIXTURE / "expected_jax_cpu.json").read_text()), "f64"),
+             ("mesh_pvtz_spinorb_hybrid", "hybrid_pvtz_spinorb", "hybrid_pvtz_spinorb",
+              "triples_fused", None, "hybrid"),
+             ("mesh_pvtz_spatial", spatial["els_in"], "spatial_path", "triples_fused_spatial",
+              spatial, "f64"),
+             ("mesh_pvtz_spatial_hybrid", "hybrid_pvtz_spatial", "hybrid_pvtz_spatial",
+              "triples_fused_spatial", None, "hybrid"))
+    for name, els, base, kernel, want, kind in cases:
+        if want is None:
+            want = json.loads(HYBRID_EXPECTED[els].read_text())
+            els = want["els_in"]
+        wd = stage_workdir(els)
+        try:
+            res, paths[name] = mesh_path(torch, name, wd, kernels, base, kernel, want, kind,
+                                         smi, dev)
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+        if kind == "f64":  # the pallas tiers below run on these amplitudes
+            runs[name] = res
+        del res
+    expected = cases[0][4]
+    info = {}
+    with phase("mesh_pvtz_pallas_tiers", info), two_entry_mesh(dev) as mesh:
+        res = runs["mesh_pvtz_spinorb"]
+        for fn in kernels.values():
+            fn.launches = 0
+        e_t = T.do_ccsd_t_spinorb(res.sys, res.cc, res.cfg, res.hf.levels,
+                                  Reporter(stream=io.StringIO()), precision="pallas",
+                                  mesh=mesh) - res.e_ccsd
+        # each entry's share: equal whole chunks of the padded strict list
+        # (triples_total_sharded), one K2 launch a chunk
+        per_raw = -(-len(T.strict_triple_list(res.sys.nocc)[0]) // MESH_WIDTH)
+        clen = T._pick_clen(res.sys.nvirt, per_raw)
+        chunks = [-(-per_raw // clen)] * MESH_WIDTH
+        k2 = kernels["triples_finale"].launches
+        check(min(chunks) >= 1 and k2 == sum(chunks),
+              f"K2 launched {k2} times under the mesh, its shares have {chunks} chunks")
+        err_t = abs(e_t - ONE_DEVICE["pallas_tier"]["e_t"])
+        check(err_t <= MESH_TOL, f"mesh pallas E(T) off the one-device tier by {err_t:.3e}")
+        check(abs(e_t - expected["e_t_f64"]) <= TRIPLES_TOL,
+              f"mesh pallas E(T) {e_t!r} vs JAX f64 {expected['e_t_f64']!r}")
+        sres = runs["mesh_pvtz_spatial"]
+        for fn in kernels.values():
+            fn.launches = 0
+        ttr = TS.do_ccsd_t_spatial(sres.sys, sres.cc, sres.cfg, sres.hf.levels,
+                                   Reporter(stream=io.StringIO()), precision="pallas", mesh=mesh)
+        nocc = sres.sys.nocc
+        nslab = nocc // TS.pick_spatial_jlen(nocc, sres.sys.nvirt, "pallas")
+        per = -(-nocc * nslab // MESH_WIDTH)
+        slabs = [min(per, nocc * nslab - k * per) for k in range(MESH_WIDTH)]
+        k5 = kernels["triples_finale_spatial"].launches
+        check(ttr.precision_used == "pallas", f"mesh spatial pallas tier ran {ttr.precision_used}")
+        check(min(slabs) >= 1 and k5 == sum(slabs),
+              f"K5 launched {k5} times under the mesh, its shares have {slabs} slabs")
+        one = ONE_DEVICE["spatial_pallas_tier"]
+        err_one = max(abs(getattr(ttr, k) - one[k]) for k in one)
+        err_j = max(abs(getattr(ttr, k) - spatial["triples"][k]) for k in spatial["triples"])
+        check(err_one <= MESH_TOL, f"mesh spatial pallas tier off one device by {err_one:.3e}")
+        check(err_j <= TRIPLES_TOL, f"mesh spatial pallas tier off JAX's f64 by {err_j:.3e}")
+        for kname, n in (("triples_finale", k2), ("triples_finale_spatial", k5)):
+            MESH_LAUNCHES[kname] = MESH_LAUNCHES.get(kname, 0) + n
+        info.update(k2_launches=k2, k2_chunks_per_entry=json.dumps(chunks),
+                    k5_launches=k5, k5_slabs_per_entry=json.dumps(slabs),
+                    e_t_pallas_vs_one_device=f"{err_t:.3e}",
+                    spatial_pallas_vs_one_device=f"{err_one:.3e}",
+                    spatial_pallas_vs_jax_f64=f"{err_j:.3e}")
+    return paths
+
+
+def mesh_dimer_phases(torch, wd: Path, kernels: dict, smi: str, dev) -> dict:
+    """mesh_dimer and mesh_dimer_stream, on the dimer's inputs in `wd`:
+    the committed els.in ("hybrid": the digit GEMMs of the vvvv term on
+    both entries, K3 once an entry), the spin-orbital dimer at "f64" (its
+    vvvv as the (aa, ab) spin blocks, each entry a slice of both, K1 once
+    an entry), and the committed els.in on the streaming tier (the limbs'
+    53 chunks padded to 54 and split, the CR term from them, K3 once an
+    entry), each under the two-entry mesh (mesh_path) against its JAX
+    file and the port's one-device run.  Returns the paths' metrics."""
+    from afesp_tpu_torch.methods import ccsd_spinorb as CS
+
+    paths = {}
+    shutil.copy(DIMER / "els.in", wd / "els.in")
+    res, paths["mesh_dimer_hybrid"] = mesh_path(
+        torch, "mesh_dimer_hybrid", wd, kernels, "dimer_hybrid_path", "triples_fused_spatial",
+        json.loads(HYBRID_EXPECTED["dimer_hybrid_path"].read_text()), "hybrid", smi, dev)
+    del res
+    (wd / "els.in").write_text(els_at(DIMER, "f64", spinorb=True))
+    res, paths["mesh_spinorb_dimer"] = mesh_path(
+        torch, "mesh_spinorb_dimer", wd, kernels, "spinorb_dimer_path", "triples_fused",
+        json.loads(SPINORB_DIMER_EXPECTED.read_text()), "f64", smi, dev)
+    check(res.cc.slices.vvvv is None and res.cc.slices.vvvv_blocks is not None
+          and res.sys.nvirt**4 * 8 > CS._BLOCK_VVVV_BYTES,
+          "the spin-orbital dimer under the mesh held its vvvv dense")
+    del res
+    torch.cuda.empty_cache()
+    shutil.copy(DIMER / "els.in", wd / "els.in")
+    res, paths["mesh_dimer_stream"] = mesh_path(
+        torch, "mesh_dimer_stream", wd, kernels, "dimer_stream_path", "triples_fused_spatial",
+        json.loads(STREAM_EXPECTED["dimer_stream_path"].read_text()), "stream", smi, dev)
+    check(res.cc.slices.v_vvvv is None and res.cc.cr_vvvv_term is not None,
+          "mesh_dimer_stream did not run the streaming tier")
+    check("limb_bytes_per_entry" in paths["mesh_dimer_stream"],
+          "mesh_dimer_stream split no limbs")
+    return paths
+
+
+def mesh_trimer_k4(torch, args: tuple, flags: dict, nocc: int, dev) -> None:
+    """K4 on each entry of the two-entry mesh at the trimer path's shape,
+    on that path's amplitudes (`args`): its share of the sorted triples,
+    once an entry, the six sums within MESH_TOL (relative) of the
+    one-device launch on the same amplitudes."""
+    from afesp_tpu_torch.methods import triples_spatial as TS
+    from afesp_tpu_torch.ops import triples_spatial_cuda as S
+    from afesp_tpu_torch.parallel import mesh as pmesh
+    from afesp_tpu_torch.parallel import triples_shard as P
+
+    info = {}
+    with phase("mesh_trimer_k4", info):
+        (si, sj, sk), w = TS._sorted_plan(nocc, dev)
+        s = S.triples_tiled_spatial(*args, si, sj, sk, w, **flags)
+        one = torch.stack([s[0], s[0] + s[1], s[2], s[2] + s[3], s[4], s[4] + s[5]])
+        before = S.triples_tiled_spatial.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = torch.stack(P.triples_spatial_sharded(
+            pmesh.Mesh((dev,) * MESH_WIDTH), *args, nocc=nocc,
+            jlen=TS.pick_spatial_jlen(nocc, args[0].shape[1], "tiled"), precision="tiled",
+            **flags))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = S.triples_tiled_spatial.launches - before
+        check(launches == MESH_WIDTH, f"K4 launched {launches} times on the mesh, not once an entry")
+        rel = float((got - one).abs().max() / one.abs().max())
+        check(rel <= MESH_TOL, f"K4 on the mesh off its one-device launch by {rel:.3e} (rel)")
+        MESH_LAUNCHES["triples_tiled_spatial"] = (MESH_LAUNCHES.get("triples_tiled_spatial", 0)
+                                                  + launches)
+        info.update(launches=launches, sorted_triples=si.numel(), rel_vs_one_device=f"{rel:.3e}",
+                    wall_s=f"{wall:.3f}")
 
 
 def main() -> int:
@@ -1799,6 +2163,7 @@ def main() -> int:
             check(res.cc.iterations == expected["cc_iterations"],
                   f"CC iterations {res.cc.iterations} vs JAX {expected['cc_iterations']}")
             check(launches["triples_fused"] > 0, "triples_fused not launched on the main path")
+            ONE_DEVICE["main_path"] = result_values(res)
             stage_walls = [ln.strip() for ln in buf.getvalue().splitlines()
                            if ln.lstrip().startswith("Time taken for")]
             info.update(wall_s=f"{wall:.3f}", launches=json.dumps(launches),
@@ -1824,6 +2189,7 @@ def main() -> int:
             e_pallas = do_ccsd_t_spinorb(res.sys, res.cc, res.cfg, res.hf.levels,
                                          Reporter(stream=io.StringIO()), precision="pallas")
             e_t_pallas = e_pallas - res.e_ccsd
+            ONE_DEVICE["pallas_tier"] = {"e_t": e_t_pallas}
             pallas_launches = {n: fn.launches for n, fn in kernels.items()}
             check(pallas_launches["triples_finale"] > 0,
                   "triples_finale not launched on the pallas tier")
@@ -1846,6 +2212,7 @@ def main() -> int:
 
     spatial_launches, tier_launches, spatial_paths = spatial_phases(torch, kernels, spatial)
     paths |= spatial_paths
+    paths |= mesh_pvtz_phases(torch, kernels, spatial, smi, dev)
     amplitudes_restart(torch, spatial)
     read_in_walls(torch)
     engine_pvtz(torch, dev)
@@ -1869,6 +2236,8 @@ def main() -> int:
         paths["spinorb_dimer_hybrid_path"] = hybrid_path(
             torch, "spinorb_dimer_hybrid_path", wd, kernels, "triples_fused",
             paths["spinorb_dimer_path"])
+        torch.cuda.empty_cache()
+        paths |= mesh_dimer_phases(torch, wd, kernels, smi, dev)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1892,7 +2261,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"], "shape": r["shape"],
-            "bound_share": b_ms / r["ms"],
+            "bound_share": b_ms / r["ms"], "mesh_launches": MESH_LAUNCHES.get(name, 0),
             **{k: r[k] for k in ("split_ms", "group_ms") if k in r},
         })
     # every path's metrics (cc_metrics), f64 and hybrid

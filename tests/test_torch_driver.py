@@ -1,7 +1,8 @@
 """Port parity: both slices through afesp_tpu_torch.run_calculation
 against the JAX driver on the generated 24-bf H2O, on the CPU — the
 spin-orbital CCSD(T) and every restricted calc_type — plus the CLI's
-error path and what the port refuses."""
+error path, what the port once refused (eri.npy, mesh_devices = 2) and
+the width that asks for more devices than are visible."""
 
 import functools
 import io
@@ -21,6 +22,7 @@ from afesp_tpu_torch.cli import main as cli_main
 from afesp_tpu_torch.driver import run_calculation
 from afesp_tpu_torch.io.report import Reporter
 from afesp_tpu_torch.methods import mp2 as tmp2
+from afesp_tpu_torch.parallel import mesh as pmesh
 
 
 @pytest.fixture(scope="module")
@@ -96,11 +98,15 @@ def test_short_pipelines_match_jax(tmp_path, h2o, calc):
                                 ("CCSD_spatial", "", True),
                                 ("CCSD(T)_spinorb", "mesh_devices = 2,\n", False)],
 )
-def test_unported_paths_raise(tmp_path, h2o, calc, extra, eri_npy_only):
-    """A mesh width of 2 is not ported and raises.  The eri.npy-only case
-    was the binary ERI tier, which the port now reads (fault F4): run from
-    a packed eri.npy written from the 24-bf H2O, its breakdown equals the
-    JAX driver's line for line."""
+def test_unported_paths_raise(tmp_path, h2o, calc, extra, eri_npy_only, monkeypatch):
+    """The paths the port once refused, each now against the JAX driver.
+    The eri.npy-only case was the binary ERI tier (fault F4): run from a
+    packed eri.npy written from the 24-bf H2O, its breakdown equals the
+    JAX driver's line for line.  The two mesh_devices = 2 cases were the
+    multi-device runs: with two CPU entries visible to the port (JAX's
+    eight CPU devices) both drivers run the CC stages on a 2-device mesh,
+    print the same mesh line and the same breakdown, with equal counts
+    and totals within 1e-10."""
     for f in h2o.iterdir():
         if eri_npy_only and f.name == "eri.dat":
             _, ji = jdat.read_integrals(h2o, True)
@@ -109,17 +115,34 @@ def test_unported_paths_raise(tmp_path, h2o, calc, extra, eri_npy_only):
             (tmp_path / f.name).symlink_to(f)
     (tmp_path / "els.in").unlink()
     write_els_in(tmp_path, calc, extra)
-    if eri_npy_only:
-        jres, jtext = _run_jax(tmp_path)
-        res, text = _run_port(tmp_path)
-        assert breakdown_block(text) == breakdown_block(jtext)
-        assert abs(res.total_energy - jres.total_energy) < 1e-10
-        assert res.hf.iterations == len(table_energies(jtext, "delta RMS D"))
-        assert res.cc.iterations == len(table_energies(jtext, "delta RMS T2"))
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_calculation(tmp_path, Reporter(stream=io.StringIO()), device="cpu")
-    assert cli_main([str(tmp_path), "--device", "cpu"]) == 999
+    monkeypatch.setattr(pmesh, "visible_devices", lambda dev: [dev, dev])
+    jres, jtext = _run_jax(tmp_path, triples_f64=not eri_npy_only)
+    res, text = _run_port(tmp_path)
+    assert breakdown_block(text) == breakdown_block(jtext)
+    assert abs(res.total_energy - jres.total_energy) < 1e-10
+    assert res.hf.iterations == len(table_energies(jtext, "delta RMS D"))
+    assert res.cc.iterations == len(table_energies(jtext, "delta RMS T2"))
+    mesh_line = " Using a 2-device mesh for CC stages."
+    assert (mesh_line in text) == (mesh_line in jtext) == (not eri_npy_only)
+
+
+@pytest.mark.parametrize("calc", ["CRCCSD(T)_spatial", "CCSD(T)_spinorb"])
+def test_mesh_wider_than_visible_raises(tmp_path, h2o, calc, monkeypatch):
+    """A mesh_devices width above the visible device count raises JAX's
+    ValueError in both drivers (JAX: 8 CPU devices; the port: 8 CPU
+    entries, and the CPU alone by default), and the CLI exits 999."""
+    wd = _stage(tmp_path, h2o, calc, "mesh_devices = 9,\n")
+    with pytest.raises(ValueError) as jerr:
+        jdriver.run_calculation(wd, JaxReporter(stream=io.StringIO()))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pmesh, "visible_devices", lambda dev: [dev] * 8)
+        with pytest.raises(ValueError) as terr:
+            run_calculation(wd, Reporter(stream=io.StringIO()), device="cpu")
+    assert str(terr.value) == str(jerr.value) == "mesh_devices=9 but only 8 devices visible"
+    write_els_in(wd, calc, "mesh_devices = 2,\n")
+    with pytest.raises(ValueError, match="mesh_devices=2 but only 1 devices visible"):
+        run_calculation(wd, Reporter(stream=io.StringIO()), device="cpu")
+    assert cli_main([str(wd), "--device", "cpu"]) == 999
 
 
 RESTRICTED = ["RHF", "MP2_spatial", "CCSD_spatial", "CCSD[T]_spatial", "CCSD(T)_spatial",

@@ -545,3 +545,155 @@ def test_stream_iterations_on_the_card_match_the_cpu():
         out[str(d)] = [x.cpu().numpy() for x in (s1, s2)]
     for got, want in zip(out[str(dev)], out["cpu"]):
         assert np.max(np.abs(got - want)) <= 1e-10 * np.abs(want).max()
+
+
+# --- the mesh (parallel/) on the card ----------------------------------------
+
+
+def _two_entry_mesh(second: int = 0):
+    from afesp_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh((torch.device("cuda", 0), torch.device("cuda", second)))
+
+
+def _mesh_kernel_case(kernel: str, mesh):
+    """(sharded, one-device) totals of `kernel`'s tier on a mesh and on
+    cuda:0, and the launches the sharded call made: K1/K2 through the
+    spin-orbital shares (o=6, v=40), K3-K5 through the restricted ones
+    (o=5, v=53, every variant on)."""
+    from afesp_tpu_torch.parallel import triples_shard as P
+
+    dev = torch.device("cuda", 0)
+    counter = {"K1": K.triples_fused, "K2": K.triples_finale, "K3": S.triples_fused_spatial,
+               "K4": S.triples_tiled_spatial, "K5": S.triples_finale_spatial}[kernel]
+    if kernel in ("K1", "K2"):
+        o, v = 6, 40
+        args = tuple(torch.as_tensor(x, dtype=F64, device=dev)
+                     for x in random_triples_problem(o, v))
+        tier = "fused" if kernel == "K1" else "pallas"
+        ii, jj, kk, clen = T.strict_plan(o, v)
+        if tier == "fused":
+            ii, jj, kk = T.strict_triple_list(o)
+            clen = len(ii)
+        idx = tuple(torch.as_tensor(x, dtype=torch.long, device=dev) for x in (ii, jj, kk))
+        one = torch.stack([T._triples_total_strict(*args, *idx, clen=clen, precision=tier)])
+        before = counter.launches
+        got = torch.tensor([P.triples_total_sharded(mesh, *args, nocc=o, precision=tier)],
+                           dtype=F64)
+        return got, one.cpu(), counter.launches - before
+    o, v = 5, 53
+    args = tuple(torch.as_tensor(x, dtype=F64, device=dev)
+                 for x in random_spatial_problem(o, v))
+    tier = {"K3": "fused", "K4": "tiled", "K5": "pallas"}[kernel]
+    jlen = TS.pick_spatial_jlen(o, v, tier)
+    if tier == "pallas":
+        one = torch.stack(TS._triples_total_spatial(*args, nocc=o, jlen=jlen, precision=tier,
+                                                    **ALL))
+    else:
+        (si, sj, sk), w = TS._sorted_plan(o, dev)
+        s = counter(*args, si, sj, sk, w, **ALL)
+        one = torch.stack([s[0], s[0] + s[1], s[2], s[2] + s[3], s[4], s[4] + s[5]])
+    before = counter.launches
+    got = torch.stack(P.triples_spatial_sharded(mesh, *args, nocc=o, jlen=jlen, precision=tier,
+                                                **ALL))
+    return got.cpu(), one.cpu(), counter.launches - before
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5"])
+def test_kernels_on_a_two_entry_mesh_match_one_device(kernel):
+    """Each kernel's tier on a mesh that lists cuda:0 twice: each entry
+    launches on its share (K1, K3 and K4 once an entry; K2 and K5 once a
+    chunk or slab), and the sum of the shares is within 1e-12 of the
+    one-device launch (only the order of the f64 sums differs)."""
+    _card()
+    got, one, launches = _mesh_kernel_case(kernel, _two_entry_mesh())
+    assert launches == 2 if kernel in ("K1", "K3", "K4") else launches >= 2
+    assert float((got - one).abs().max()) <= 1e-12 * float(one.abs().max())
+
+
+def _vvvv_cases(dev, spin: bool, digits: bool):
+    """(X, vvvv shards' slices, the one-device product) for the vvvv term
+    of one route: spatial c_oovv (o=5, v=40) against v_vvvv, or
+    spin-orbital tau (o=6, 2*vs=36) against the (aa, ab) block store."""
+    import numpy as np
+
+    from afesp_tpu_torch.methods import ccsd_spatial as CSP
+    from afesp_tpu_torch.methods import ccsd_spinorb as CS
+    from afesp_tpu_torch.ops.exact_gemm import exact_einsum, prechunk_op
+
+    rng = np.random.default_rng(9)
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s) * 0.05, device=dev)
+    if not spin:
+        o, v = 5, 40
+        sl = CSP.Slices(v_oovv=r(o, o, v, v), v_ovov=r(o, v, o, v), v_vvov=r(v, v, o, v),
+                        v_oovo=r(o, o, v, o), v_oooo=r(o, o, o, o), v_vvvv=r(v, v, v, v))
+        X = r(o, o, v, v)
+        spec = "efab,ijef->ijab"
+        if digits:
+            want = exact_einsum(spec, sl.v_vvvv, X, A_pre=prechunk_op(spec, "A", sl.v_vvvv, L=6),
+                                maxdeg=7)
+        else:
+            want = torch.einsum(spec, sl.v_vvvv, X)
+        return X, sl, want
+    o, vs = 6, 18
+    blocks = (r(vs, vs, vs, vs), r(vs, vs, vs, vs))
+    z = lambda *s: torch.zeros(s, dtype=F64, device=dev)
+    sl = CS.SpinSlices(oooo=z(o, o, o, o), ooov=z(o, o, o, 2 * vs), ovoo=z(o, 2 * vs, o, o),
+                       oovo=z(o, o, 2 * vs, o), oovv=z(o, o, 2 * vs, 2 * vs),
+                       ovvo=z(o, 2 * vs, 2 * vs, o), ovvv=z(o, 2 * vs, 2 * vs, 2 * vs),
+                       vovv=z(2 * vs, o, 2 * vs, 2 * vs), vvvv=None, vvvv_blocks=blocks)
+    tau = r(o, o, 2 * vs, 2 * vs)
+    if digits:
+        want = CS.tau_vvvv_split(tau, None, CS.presplit_consts(sl), blocks=blocks)
+    else:
+        want = CS.tau_vvvv_blocked(tau, None, blocks=blocks)
+    return tau, sl, want
+
+
+def _vvvv_agrees(got, want, digits: bool) -> None:
+    """The digit route bit for bit (exact integer pair products, an
+    elementwise recombination); the dense f64 route within 1e-12 of
+    scale: cuBLAS may take another DGEMM for a slice's narrower
+    operand, so the order of the f64 sums can differ (on the CPU the
+    split is bit for bit, tests/test_torch_parallel.py)."""
+    if digits:
+        assert torch.equal(got, want)
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-12 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("spin", [False, True], ids=["spatial", "spinorb"])
+@pytest.mark.parametrize("digits", [False, True], ids=["dense", "digits"])
+def test_sharded_vvvv_is_the_one_device_product_on_the_card(spin, digits):
+    """The vvvv term split along the output's a over a mesh that lists
+    cuda:0 twice against the one-device product, on the dense f64 route
+    and on the digit route (per-slice digitized operand): _vvvv_agrees."""
+    from afesp_tpu_torch.parallel import ccsd_shard as CSH
+
+    dev = _card()
+    X, sl, want = _vvvv_cases(dev, spin, digits)
+    got = CSH.vvvv_shards(_two_entry_mesh(), sl, digits)(X)
+    assert got.device == dev
+    _vvvv_agrees(got, want, digits)
+
+
+def test_mesh_on_two_cards():
+    """The same on a mesh of cuda:0 and cuda:1: every kernel launches on
+    its entry's card (the wrappers make that card current) and the sums
+    hold 1e-12 of one device; the vvvv shards' products agree with the
+    one-device ones on both routes (_vvvv_agrees).  Needs two cards."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a mesh of cuda:0 and cuda:1")
+    mesh = _two_entry_mesh(1)
+    for kernel in ("K1", "K2", "K3", "K4", "K5"):
+        got, one, launches = _mesh_kernel_case(kernel, mesh)
+        assert launches >= 2
+        assert float((got - one).abs().max()) <= 1e-12 * float(one.abs().max()), kernel
+    from afesp_tpu_torch.parallel import ccsd_shard as CSH
+
+    for spin in (False, True):
+        for digits in (False, True):
+            X, sl, want = _vvvv_cases(torch.device("cuda", 0), spin, digits)
+            _vvvv_agrees(CSH.vvvv_shards(mesh, sl, digits)(X), want, digits)

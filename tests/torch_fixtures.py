@@ -123,3 +123,120 @@ def random_spatial_problem(o: int, v: int, seed: int = 11):
         e[:o], e[o:],
         r(v, o, v, v), r(o, o, o, v),
     )
+
+
+_TIME = re.compile(r"(Time taken[^:]*:|Total execution time:)\s*[-\d.]+")
+_DATE = re.compile(r"running on \S+ at \S+")
+_TROW = re.compile(r"^(\s+(?:\d+|MP1)(?:\s+-?\d+\.\d+){3})\s+\d+\.\d+$")
+_NUM = re.compile(r"-?\d+\.\d+(?:[eE][-+]?\d+)?")
+
+
+def masked_report(text: str):
+    """The report with timings and dates masked, and each line's numbers
+    taken out as (value, one unit of its last printed decimal)."""
+    lines, nums = [], []
+    for ln in text.split("\n"):
+        ln = _DATE.sub("running on <date>", _TIME.sub(r"\1 <t>", ln))
+        ln = _TROW.sub(r"\1 <t>", ln)
+        nums.append([(float(x), 10.0 ** -len(x.split(".")[1].split("e")[0].split("E")[0]))
+                     for x in _NUM.findall(ln)])
+        # the padding before a number shifts with its sign
+        lines.append(re.sub(r"\s*" + _NUM.pattern, " <n>", ln))
+    return lines, nums
+
+
+def write_n2(directory: Path) -> Path:
+    """The 28-bf N2/cc-pVDZ fixture, bond 2.00 bohr (nvirt 21)."""
+    from afesp_tpu.integrals.generate import write_dat_files
+
+    directory.mkdir(parents=True, exist_ok=True)
+    write_dat_files(directory, np.array([7, 7]), np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 2.0]]),
+                    "cc-pvdz")
+    return directory
+
+
+def mesh_driver_parity(wd: Path, src: Path, calc: str, width: int, precision: str,
+                       monkeypatch, sub_size=None, stream: bool = False):
+    """Both drivers at mesh_devices = width on `src`'s inputs (staged in
+    `wd`), the port's visible devices eight CPU entries, JAX's its eight
+    CPU devices, JAX's triples at f64 (the port's every tier), and the
+    checks of tests/test_torch_parallel_*.py: the reports equal line for
+    line with the timings masked, the mesh line included, each number
+    within 1e-10 (or one unit of its last printed decimal), equal SCF and
+    CC iteration counts, the totals and the restricted triples within
+    1e-10; the CCSD ran on a sub-mesh of `sub_size` entries in both (None:
+    on one device), or, with `stream`, the stream tier's limbs split over
+    the whole mesh, 1/width of the bytes an entry.  Returns the port's
+    result and report."""
+    import functools
+
+    import afesp_tpu.driver as jdriver
+    from afesp_tpu.io.report import Reporter as JaxReporter
+    from afesp_tpu.methods.triples_spatial import do_ccsd_t_spatial
+    from afesp_tpu.methods.triples_spinorb import do_ccsd_t_spinorb
+    from afesp_tpu.parallel import ccsd_shard as jcs
+
+    from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.io.report import Reporter
+    from afesp_tpu_torch.parallel import ccsd_shard as tcs
+    from afesp_tpu_torch.parallel import mesh as tmesh
+
+    if stream:
+        monkeypatch.setenv("AFESP_FORCE_STREAM", "1")
+    for f in src.iterdir():
+        if f.name != "els.in":
+            (wd / f.name).symlink_to(f)
+    extra = f"mesh_devices = {width},\n"
+    if precision != "f64":
+        extra += f'ccsd_precision = "{precision}",\n'
+    write_els_in(wd, calc, extra)
+    monkeypatch.setattr(tmesh, "visible_devices", lambda dev: [dev] * 8)
+    jsub, tsub, tlimbs = [], [], []
+    jfit, tfit, tshard = jcs._fitting_mesh, tcs._fitting_mesh, tcs.shard_vvvv_limbs
+    monkeypatch.setattr(jcs, "_fitting_mesh", lambda m, n: jsub.append(jfit(m, n)) or jsub[-1])
+    monkeypatch.setattr(tcs, "_fitting_mesh", lambda m, n: tsub.append(tfit(m, n)) or tsub[-1])
+    monkeypatch.setattr(tcs, "shard_vvvv_limbs",
+                        lambda m, b: tlimbs.append(tshard(m, b)) or tlimbs[-1])
+
+    rep = JaxReporter(stream=io.StringIO())
+    with monkeypatch.context() as mp:
+        mp.setattr(jdriver, "do_ccsd_t_spatial",
+                   functools.partial(do_ccsd_t_spatial, precision="f64"))
+        mp.setattr(jdriver, "do_ccsd_t_spinorb",
+                   functools.partial(do_ccsd_t_spinorb, precision="f64"))
+        jres = jdriver.run_calculation(wd, rep)
+    jtext = rep.stream.getvalue()
+    rep = Reporter(stream=io.StringIO())
+    res = run_calculation(wd, rep, device="cpu")
+    text = rep.stream.getvalue()
+
+    mesh_line = f" Using a {width}-device mesh for CC stages."
+    assert text.count(mesh_line) == 1 and jtext.count(mesh_line) == 1
+    assert res.cc.precision_used == ("f64" if precision == "f64" else "hybrid")
+    if stream:
+        assert res.cc.slices.v_vvvv is None and res.cc.cr_vvvv_term is not None
+        # split once: the solve and the CR term read the same shards
+        limbs = tlimbs[0]
+        assert all(x is limbs for x in tlimbs) and limbs.mesh.size == width
+        assert all(b * width == sum(limbs.nbytes()) for b in limbs.nbytes())
+    else:
+        sizes = [None if m is None else m.size for m in tsub]
+        assert sizes and sizes == [None if m is None else m.devices.size for m in jsub]
+        assert sizes[0] == sub_size
+
+    assert res.hf.iterations == len(table_energies(jtext, "delta RMS D"))
+    assert res.cc.iterations == len(table_energies(jtext, "delta RMS T2"))
+    for key in ("e_hf", "e_mp2", "e_ccsd", "e_ccsd_t", "total_energy"):
+        assert abs(getattr(res, key) - getattr(jres, key)) < 1e-10, key
+    if res.triples is not None:
+        for key in ("e_ccsd_t", "e_ccsd_tt", "e_rccsd_t", "e_rccsd_tt", "e_crccsd_t",
+                    "e_crccsd_tt", "D_T", "D_TT"):
+            assert abs(getattr(res.triples, key) - getattr(jres.triples, key)) < 1e-10, key
+    lines, nums = masked_report(text)
+    jlines, jnums = masked_report(jtext)
+    assert lines == jlines
+    for got, want, line in zip(nums, jnums, lines):
+        assert len(got) == len(want)
+        assert all(abs(a - b) <= max(1e-10, 1.001 * u) for (a, u), (b, _) in zip(got, want)), \
+            (line, got, want)
+    return res, text
