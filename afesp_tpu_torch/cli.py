@@ -32,14 +32,24 @@ def main(argv=None) -> int:
     )
     args = p.parse_args(argv)
 
+    from . import warmup
     from .driver import run_calculation
 
     try:
         run_calculation(args.workdir, device=None if args.device == "cuda" else "cpu")
     except (FileNotFoundError, ValueError, RuntimeError) as e:
+        reasons = [e]
+        # a compile-ahead nvcc may still run: wait for it, so the exit
+        # leaves no compiler behind (JAX's CLI joins its warmup here too);
+        # its own failure is reported beside the run's
+        try:
+            warmup.join()
+        except RuntimeError as build_error:
+            reasons.append(build_error)
         # error() analogue (error_handling.f90:7-20): code 999
         print(" ERROR.", file=sys.stderr)
-        print(f" Reason: {e}.", file=sys.stderr)
+        for reason in reasons:
+            print(f" Reason: {reason}.", file=sys.stderr)
         print(" EXITING...", file=sys.stderr)
         return 999
     return 0

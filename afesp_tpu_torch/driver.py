@@ -1,7 +1,8 @@
 """Pipeline driver — the program `main` equivalent (main.F90:24-186).
 
-Port of `afesp_tpu/driver.py:28-243` (`RunResult`, `run_calculation`,
-`_final_breakdown`).  Dispatch on (restricted, calc_type):
+Port of `afesp_tpu/driver.py:28-243` (`RunResult`, `_enable_compile_cache`'s
+fingerprint check, `run_calculation` with its compile-ahead and profiler
+trace, `_final_breakdown`).  Dispatch on (restricted, calc_type):
 
   restricted:   RHF -> MP2_spatial -> CCSD_spatial -> (T)_spatial family
   spin-orbital: RHF -> MP2_spatial -> CCSD_spinorb -> (T)_spinorb
@@ -13,8 +14,20 @@ there with the JAX driver's ValueError.
 
 with the reference's timing lines and final energy-breakdown table
 (labels are scraped by the binding-curve wrapper, so they are API).
-The JAX compile cache, warmup and profiler are not ported.  The device
-mesh follows JAX's width rule (`afesp_tpu/driver.py:112-129`): 0 and 1
+
+The JAX package's run-time plumbing, in the port's terms: on a CUDA
+device the kernel build directory's fingerprint is checked first
+(`cachemeta.check`, a warning on a mismatch, as JAX checks its compile
+cache), and right after the read-in `warmup.start` builds the kernels
+the triples stage will load while RHF, MP2 and CCSD run.  With
+AFESP_TORCH_PROFILE=<dir> (JAX: AFESP_JAX_PROFILE and jax.profiler) the
+run is traced by torch.profiler, CPU and, on a card, CUDA activities,
+with one `record_function` range for each stage section of the report
+("Integral read-in", "Restricted Hartree-Fock", "MP2", "CCSD",
+"CCSD(T)"), and a Chrome trace is written into <dir> when the run ends
+or raises.  Without the variable there is no profiler and no range.
+
+The device mesh follows JAX's width rule (`afesp_tpu/driver.py:112-129`): 0 and 1
 run on one device, -1 means every visible device (`parallel.mesh.
 visible_devices`: the cards on a CUDA device, the CPU alone on the
 CPU), a width above the visible count raises JAX's ValueError, and a
@@ -25,12 +38,15 @@ functions as in JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from pathlib import Path
 
 import torch
 
+from . import cachemeta, warmup
 from .config import CalcType, Config, read_els_in
 from .device import default_device
 from .io import dat
@@ -39,9 +55,12 @@ from .methods import hf as hf_mod
 from .methods import mp2 as mp2_mod
 from .methods.ccsd_spatial import CCSDResult, do_ccsd_spatial
 from .methods.ccsd_spinorb import CCSDSpinorbResult, do_ccsd_spinorb
-from .methods.triples_spatial import TriplesResult, do_ccsd_t_spatial, triples_tier
+from .methods.triples_spatial import TriplesResult, do_ccsd_t_spatial
 from .methods.triples_spinorb import do_ccsd_t_spinorb
+from .ops import _build
 from .parallel import mesh as pmesh
+
+PROFILE_ENV = "AFESP_TORCH_PROFILE"
 
 
 @dataclasses.dataclass
@@ -65,6 +84,31 @@ class RunResult:
         return self.e_hf + self.e_highest + self.e_nuc
 
 
+@contextlib.contextmanager
+def _profiled(directory: str, dev: torch.device):
+    """torch.profiler around the run; its Chrome trace is written into
+    `directory` when the run ends or raises.  Yields the `record_function`
+    of the stage ranges."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(directory)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield record_function
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(out / f"afesp_torch_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def _no_range(name: str):
+    return contextlib.nullcontext()
+
+
 def run_calculation(
     workdir: str | Path = ".",
     rep: Reporter | None = None,
@@ -72,6 +116,21 @@ def run_calculation(
     device: str | torch.device | None = None,
 ) -> RunResult:
     dev = default_device(device)
+    if dev.type == "cuda":
+        # the kernels' build directory, as the JAX driver checks its
+        # compile cache (a mismatch warns, the run goes on)
+        cachemeta.check(_build.BUILD_DIR)
+    profile_dir = os.environ.get(PROFILE_ENV)
+    if not profile_dir:
+        return _run(workdir, rep, cfg, dev, _no_range)
+    with _profiled(profile_dir, dev) as stage:
+        return _run(workdir, rep, cfg, dev, stage)
+
+
+def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device,
+         stage) -> RunResult:
+    """run_calculation's pipeline; `stage(name)` is the context of each
+    report section's profiler range."""
     rep = rep or Reporter()
     workdir = Path(workdir)
     t_glob = time.perf_counter()
@@ -81,17 +140,21 @@ def run_calculation(
     if cfg is None:
         cfg = read_els_in(workdir)
 
-    rep.section("Integral read-in")
-    rep.write(" Getting number of basis functions...")
-    rep.write(" Allocating integral store...")
-    rep.write(" Reading overlap matrix...")
-    rep.write(" Reading kinetic integrals...")
-    rep.write(" Reading nuclear-electron integrals...")
-    rep.write(" Constructing core Hamiltonian...")
-    rep.write(" Reading two-body integrals...")
-    # on a card only the packed ERI store is kept on the host
-    sys_, ints = dat.read_integrals(workdir, cfg.restricted, host_dense=dev.type == "cpu")
-    rep.write(" Done reading integrals!")
+    with stage("Integral read-in"):
+        rep.section("Integral read-in")
+        rep.write(" Getting number of basis functions...")
+        rep.write(" Allocating integral store...")
+        rep.write(" Reading overlap matrix...")
+        rep.write(" Reading kinetic integrals...")
+        rep.write(" Reading nuclear-electron integrals...")
+        rep.write(" Constructing core Hamiltonian...")
+        rep.write(" Reading two-body integrals...")
+        # on a card only the packed ERI store is kept on the host
+        sys_, ints = dat.read_integrals(workdir, cfg.restricted, host_dense=dev.type == "cpu")
+        rep.write(" Done reading integrals!")
+    # compile-ahead: the kernels the triples stage will load are built
+    # while the stages before it run
+    warmup.start(sys_, cfg, dev)
     rep.sys_info(sys_, ints, cfg)
     rep.stage_time(
         "Time taken for system initialisation:", time.perf_counter() - t0
@@ -113,20 +176,23 @@ def run_calculation(
             mesh = pmesh.default_mesh(want, dev)
             rep.write(f" Using a {want}-device mesh for CC stages.")
 
-    hf = hf_mod.do_rhf(sys_, ints, cfg, rep, workdir, device=dev)
+    with stage("Restricted Hartree-Fock"):
+        hf = hf_mod.do_rhf(sys_, ints, cfg, rep, workdir, device=dev)
     res.hf = hf
     res.e_hf = hf.e_hf
     res.e_highest = 0.0
 
     if cfg.wants_mp2:
-        mp2 = mp2_mod.do_mp2_spatial(sys_, ints, cfg, hf, rep, workdir, device=dev)
+        with stage("MP2"):
+            mp2 = mp2_mod.do_mp2_spatial(sys_, ints, cfg, hf, rep, workdir, device=dev)
         res.e_mp2 = mp2.e_mp2
         res.e_highest = mp2.e_mp2
 
         if cfg.wants_ccsd and cfg.restricted:
             t_cc = time.perf_counter()
-            cc = do_ccsd_spatial(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
-                                 slices=mp2.slices, vvvv_B=mp2.vvvv_B, mesh=mesh)
+            with stage("CCSD"):
+                cc = do_ccsd_spatial(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
+                                     slices=mp2.slices, vvvv_B=mp2.vvvv_B, mesh=mesh)
             mp2.vvvv_B = None  # the limbs' last reader was the CC stage
             rep.stage_time(
                 "Time taken for restricted CCSD:", time.perf_counter() - t_cc
@@ -136,8 +202,8 @@ def run_calculation(
             res.t1_diagnostic = cc.t1_diagnostic
             res.e_highest = cc.e_ccsd
             if cfg.wants_triples:
-                tr = do_ccsd_t_spatial(sys_, cc, cfg, hf.levels, rep,
-                                       precision=triples_tier(cfg), mesh=mesh)
+                with stage("CCSD(T)"):
+                    tr = do_ccsd_t_spatial(sys_, cc, cfg, hf.levels, rep, mesh=mesh)
                 res.triples = tr
                 res.e_highest = tr.e_highest
         elif cfg.wants_ccsd:
@@ -149,8 +215,9 @@ def run_calculation(
                     " use a *_spatial calc_type at this scale"
                 )
             t_cc = time.perf_counter()
-            cc = do_ccsd_spinorb(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
-                                 mesh=mesh)
+            with stage("CCSD"):
+                cc = do_ccsd_spinorb(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
+                                     mesh=mesh)
             rep.stage_time(
                 "Time taken for unrestricted CCSD:", time.perf_counter() - t_cc
             )
@@ -158,7 +225,8 @@ def run_calculation(
             res.e_ccsd = cc.e_ccsd
             res.e_highest = cc.e_ccsd
             if cfg.wants_triples:
-                e_t = do_ccsd_t_spinorb(sys_, cc, cfg, hf.levels, rep, mesh=mesh)
+                with stage("CCSD(T)"):
+                    e_t = do_ccsd_t_spinorb(sys_, cc, cfg, hf.levels, rep, mesh=mesh)
                 res.e_ccsd_t = e_t
                 res.e_highest = e_t
 

@@ -2,7 +2,7 @@
 CR-CCSD[T]/(T) — Piecuch et al., CPC 149 (2002) 71-96.
 
 Port of `afesp_tpu/methods/triples_spatial.py` (`TriplesResult`, `_xbar`,
-`cr_intermediates` in f64, `_islice_terms`, `strict_spatial_plan`,
+`cr_intermediates` at f64 and f32, `_islice_terms`, `strict_spatial_plan`,
 `_triples_total_spatial`, `pick_spatial_jlen`, `do_ccsd_t_spatial` with
 its mesh branch `:546-551,673-683`).
 Re-implements do_ccsd_t_spatial (ccsd.f90:2018-2293) and
@@ -12,36 +12,47 @@ quirks reproduced deliberately: the I_ooov'' virtual sum cut at nocc
 final CCSD iteration, and `ccsd_t_spatial_bug_compat` (plain
 CCSD(T)_spatial printing CCSD[T], ccsd.f90:2211-2215).
 
-Four tiers, all f64:
+Five tiers:
 
   "fused"  — K3, `ops/triples_spatial_cuda.triples_fused_spatial`: the
              24 numerator GEMMs and the M-operator sums over sorted
-             i<=j<=k triples in hand-written CUDA;
+             i<=j<=k triples in hand-written CUDA, f64;
   "tiled"  — K4, `triples_tiled_spatial`: the numerator cubes as batched
-             torch matmuls per chunk, the M-operator sums in CUDA;
-  "pallas" — the (i, j-slab) panels as torch einsums, then K5,
-             `triples_finale_spatial`;
+             torch matmuls per chunk, the M-operator sums in CUDA, f64;
+  "pallas" — the (i, j-slab) panels as f64 torch einsums, then K5,
+             `triples_finale_spatial` (JAX's panels here are f32; the
+             port's K5 is an f64 kernel, so its panels stay f64);
+  "hybrid" — JAX's f32 slab tier: the 24 panel GEMMs and z3/y with f32
+             operands (cast once, outside the slab loop), the
+             denominators and every reduction in f64 (`_islice_terms`);
   "f64"    — plain torch throughout (`_islice_terms`).
 
-With `precision=None` the tier is "fused" on a CUDA device when
-nvirt <= 128 and "tiled" above (the JAX package's choice by size; the
-port's kernels have no 128 cap), and "f64" on the CPU.  "hybrid" (f32
-panel GEMMs on the TPU) is taken as "f64".  The driver takes the tier
-from `ccsd_precision` as the JAX driver does (`triples_tier`): "pallas"
-and "fused" name their tiers; "f64" and "hybrid" get the size default,
-so on a card "f64" runs K3 or K4 (every CUDA tier is f64).  A kernel
-that fails raises: the JAX package's VMEM-degrade memo is not carried
-over.
+With `precision=None` the tier follows `cfg.ccsd_precision`, as in the
+JAX driver (`:530-549`): "pallas" and "fused" name their tiers; for
+"f64" and "hybrid" (`default_precision`) a CUDA device runs "fused" when
+nvirt <= 128 and "tiled" above (the JAX package's TPU choice by size,
+which upgrades "hybrid" to its kernels; the port's kernels have no 128
+cap), and the CPU runs the request itself, "f64" or "hybrid", as JAX off
+a TPU.  A kernel that fails raises: the JAX package's VMEM-degrade memo
+is not carried over.
+
+The CR intermediates follow JAX's normalisation (`:565-578`): the whole
+chain runs in f32 unless the request is "f64".  The request is
+`precision` when it names an arithmetic ("f64", "hybrid") and
+`cfg.ccsd_precision` otherwise: the port's kernel tiers are f64, so
+naming one asks for no f32.  So the committed inputs, at
+`ccsd_precision = "hybrid"`, run the f32 chain into K3 or K4 on a card.
+The f32 I'' enter the f64 tiers cast back to f64 (exactly).
 
 Under a device mesh (`mesh`) each entry runs the tier one device would
 run on its contiguous share of that tier's work list
 (`parallel/triples_shard.triples_spatial_sharded`): the sorted triples
 with their orbit weights (K3, K4) or the (i, j-slab) grid ("pallas",
-K5; "f64"), the six sums added on the first entry.  JAX swaps "fused"
-and "tiled" for its slab tiers under a mesh (JAX `:549-551,681-682`),
-a limit of Pallas under shard_map, not of the physics; the port keeps
-its one-device tier choice, and `precision_used` names the tier that
-ran.
+K5; "hybrid"; "f64"), the six sums added on the first entry.  JAX swaps
+"fused" and "tiled" for its slab tiers under a mesh (JAX
+`:549-551,681-682`), a limit of Pallas under shard_map, not of the
+physics; the port keeps its one-device tier choice, and
+`precision_used` names the tier that ran.
 """
 
 from __future__ import annotations
@@ -63,7 +74,7 @@ from ..ops.triples_spatial_cuda import (
 from .ccsd_spatial import CCSDResult, Slices
 
 es = torch.einsum
-PRECISIONS = ("f64", "pallas", "fused", "tiled")
+PRECISIONS = ("f64", "hybrid", "pallas", "fused", "tiled")
 _SUM_KEYS = ("e_T", "e_TT", "D_T", "D_TT", "e_CR", "e_CRT")
 
 
@@ -80,6 +91,7 @@ class TriplesResult:
     e_highest: float = 0.0
     calcname: str = "CCSD"
     precision_used: str = ""  # the tier that ran
+    cr_precision: str = ""  # the CR intermediates' arithmetic, "f64" or "f32"
 
 
 def _xbar(x: torch.Tensor) -> torch.Tensor:
@@ -92,15 +104,25 @@ def _xbar(x: torch.Tensor) -> torch.Tensor:
     return 4.0 / 3.0 * x - 2.0 * acb + 2.0 / 3.0 * bca
 
 
-def cr_intermediates(t1, t2, t1_prev, t2_prev, v: Slices, nocc: int, vvvv_term=None):
+def cr_intermediates(t1, t2, t1_prev, t2_prev, v: Slices, nocc: int, precision: str = "f64",
+                     vvvv_term=None):
     """I_vovv'' and I_ooov'' (build_cr_ccsd_t_intermediates,
-    ccsd.f90:2338-2551) in f64, with stale I_vo/asym_t2 from
-    (t1_prev, t2_prev).
+    ccsd.f90:2338-2551), with stale I_vo/asym_t2 from (t1_prev, t2_prev).
+
+    precision "f64" runs the chain in f64; any other value runs the whole
+    chain in f32 (JAX `:100-108`), the two results f32.
 
     vvvv_term: the chain's one v_vvvv contraction es("ecba,ie->ciab",
     v_vvvv, t1) (ccsd.f90:2513), computed on the streaming tier from the
     digit limbs (`ccsd_spatial._cr_vvvv_term_from_B`); with it v.v_vvvv
     may be None."""
+    if precision != "f64":
+        t1, t2, t1_prev, t2_prev = (x.float() for x in (t1, t2, t1_prev, t2_prev))
+        f32 = lambda x: None if x is None else x.float()
+        # v_vvvv is read only without vvvv_term: no f32 copy of it then
+        v = Slices(f32(v.v_oovv), f32(v.v_ovov), f32(v.v_vvov), f32(v.v_oovo),
+                   f32(v.v_oooo), f32(v.v_vvvv) if vvvv_term is None else None)
+        vvvv_term = f32(vvvv_term)
     # stale quantities (module docstring)
     asym_t2 = 2.0 * t2_prev - t2_prev.permute(1, 0, 2, 3)
     I_vo = 2.0 * es("miea,me->ai", v.v_oovv, t1_prev) - es("miae,me->ai", v.v_oovv, t1_prev)
@@ -248,7 +270,13 @@ def _islice_terms(i0: int, j0: int, t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v,
                   doing_CR: bool, precision: str = "f64") -> dict:
     """The six reductions over the (i = i0, j in [j0, j0+jlen), all k)
     slab (panel form of the per-(i,j,k) loop, ccsd.f90:2151-2237).
-    precision "pallas" hands the panels to K5; "f64" reduces in torch."""
+    precision "pallas" hands the panels to K5; "f64" reduces in torch;
+    "hybrid" runs the panel GEMMs and z3/y with f32 operands (cast here
+    unless the caller has), while e_o/e_v, hence the denominators, the
+    quotients and every reduction, stay f64 (JAX `:213-221`)."""
+    if precision == "hybrid":
+        t1, t2, v_vvov, v_oovo, v_oovv, I_vovv_pp, I_ooov_pp = (
+            x.float() for x in (t1, t2, v_vvov, v_oovo, v_oovv, I_vovv_pp, I_ooov_pp))
     args = (t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I_vovv_pp, I_ooov_pp)
     if precision == "pallas":
         # K5: only the two GEMM outputs (t3_D, m3) are materialised; t3,
@@ -337,10 +365,14 @@ def _triples_total_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I_vovv_pp, 
     as 0-d tensors: the full grid, or the (i0, j0) slabs of `cells` (a
     mesh entry's share).  jlen must divide nocc."""
     assert nocc % jlen == 0
+    if precision == "hybrid":
+        # the f64->f32 operand casts once, outside the slab loop
+        t1, t2, v_vvov, v_oovo, v_oovv, I_vovv_pp, I_ooov_pp = (
+            x.float() for x in (t1, t2, v_vvov, v_oovo, v_oovv, I_vovv_pp, I_ooov_pp))
     args = (t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I_vovv_pp, I_ooov_pp)
     if cells is None:
         cells = [(i0, j0) for i0 in range(nocc) for j0 in range(0, nocc, jlen)]
-    sums = [t1.new_zeros(()) for _ in _SUM_KEYS]
+    sums = [e_o.new_zeros(()) for _ in _SUM_KEYS]
     for i0, j0 in cells:
         acc = _islice_terms(i0, j0, *args, jlen=jlen, doing_T=doing_T, doing_R=doing_R,
                             doing_CR=doing_CR, precision=precision)
@@ -351,7 +383,7 @@ def _triples_total_spatial(t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I_vovv_pp, 
 def pick_spatial_jlen(nocc: int, nvirt: int, precision: str) -> int:
     """j-slab length for the (i, j-slab) grid: bounds the ~(6..20) live
     (jlen*o*v^3) panel transients to ~8 GB at the JAX package's bytes per
-    element ("pallas" 8, otherwise 40).  jlen divides nocc."""
+    element ("pallas" 8, "hybrid" 12, otherwise 40).  jlen divides nocc."""
     el = {"hybrid": 12, "pallas": 8}.get(precision, 40)
     budget = max(1, min(nocc, int(8e9 / (20 * el * nocc * nvirt**3) + 1)))
     return max(d for d in range(1, budget + 1) if nocc % d == 0)
@@ -365,17 +397,25 @@ def _sorted_plan(nocc: int, dev):
     return idx, torch.as_tensor(w[keep], dtype=torch.float64, device=dev)
 
 
-def default_precision(dev: torch.device, nvirt: int) -> str:
+def default_precision(dev: torch.device, nvirt: int, requested: str = "f64") -> str:
+    """The tier of a "f64" or "hybrid" request: on a CUDA device K3 up to
+    nvirt 128 and K4 above, on the CPU the request itself."""
     if dev.type != "cuda":
-        return "f64"
+        return "hybrid" if requested == "hybrid" else "f64"
     return "fused" if nvirt <= 128 else "tiled"
 
 
 def triples_tier(cfg: Config) -> str | None:
-    """The tier `ccsd_precision` asks for (JAX `do_ccsd_t_spatial`
-    `:530-549`): "pallas" and "fused" as named, None (the size default)
+    """The tier `ccsd_precision` names (JAX `do_ccsd_t_spatial`
+    `:530-549`): "pallas" and "fused" as named, None (default_precision)
     for "f64" and "hybrid"."""
     return cfg.ccsd_precision if cfg.ccsd_precision in ("pallas", "fused") else None
+
+
+def cr_precision(cfg: Config, precision: str | None) -> str:
+    """The CR chain's arithmetic, "f64" or "f32" (module docstring)."""
+    requested = precision if precision in ("f64", "hybrid") else cfg.ccsd_precision
+    return "f64" if requested == "f64" else "f32"
 
 
 def do_ccsd_t_spatial(
@@ -388,16 +428,16 @@ def do_ccsd_t_spatial(
     mesh=None,
 ) -> TriplesResult:
     """The restricted triples family on the device of the amplitudes.
-    precision: "fused" | "tiled" | "pallas" | "f64" ("hybrid" is taken
-    as "f64"); None picks by device and nvirt (module docstring).  With
-    `mesh` the tier runs on each entry's share of its work list."""
+    precision: "fused" | "tiled" | "pallas" | "hybrid" | "f64"; None
+    takes the tier from cfg.ccsd_precision, the device and nvirt (module
+    docstring).  With `mesh` the tier runs on each entry's share of its
+    work list."""
     t1, t2 = cc.t1, cc.t2
     dev = t1.device
     nocc, nvirt = sys_.nocc, sys_.nvirt
+    chain = cr_precision(cfg, precision)
     if precision is None:
-        precision = default_precision(dev, nvirt)
-    elif precision == "hybrid":
-        precision = "f64"
+        precision = triples_tier(cfg) or default_precision(dev, nvirt, cfg.ccsd_precision)
     if precision not in PRECISIONS:
         raise ValueError(f"triples precision must be one of {PRECISIONS}, got {precision!r}")
     rep = rep or Reporter()
@@ -419,12 +459,16 @@ def do_ccsd_t_spatial(
                 "(streaming tier: do_ccsd_spatial computes cr_vvvv_term when "
                 "the config requests a CR variant)"
             )
-        I_vovv_pp, I_ooov_pp = cr_intermediates(t1, t2, cc.t1_prev, cc.t2_prev, v, nocc,
-                                                vvvv_term=cc.cr_vvvv_term)
+        I_vovv_pp, I_ooov_pp = cr_intermediates(
+            t1, t2, cc.t1_prev, cc.t2_prev, v, nocc,
+            precision="f64" if chain == "f64" else "hybrid", vvvv_term=cc.cr_vvvv_term)
+        if precision != "hybrid":
+            # the f64 tiers take the f32 chain's results as f64 (exact)
+            I_vovv_pp, I_ooov_pp = I_vovv_pp.double(), I_ooov_pp.double()
     else:
         I_vovv_pp = I_ooov_pp = None
 
-    if precision in ("pallas", "f64") and not doing_CR:
+    if precision in ("pallas", "hybrid", "f64") and not doing_CR:
         # _islice_terms reads them only for CR
         I_vovv_pp = t1.new_zeros((nvirt, nocc, nvirt, nvirt))
         I_ooov_pp = t1.new_zeros((nocc, nocc, nocc, nvirt))
@@ -468,7 +512,7 @@ def do_ccsd_t_spatial(
         if doing_T:
             D_TT += const
 
-    res = TriplesResult(precision_used=precision)
+    res = TriplesResult(precision_used=precision, cr_precision=chain if doing_CR else "")
     e_ccsd = cc.e_ccsd
     res.e_ccsd_t = e_ccsd + e_T
     res.e_highest = res.e_ccsd_t

@@ -1,7 +1,7 @@
 """Spin-orbital CCSD(T) — the headline compute kernel.
 
 Port of `afesp_tpu/methods/triples_spinorb.py:36-489`
-(`strict_triple_list`, `strict_plan`, `_chunk_panels`,
+(`strict_triple_list`, `strict_plan`, `_pick_clen`, `_chunk_panels`,
 `triples_chunk_energies`, `_strict_chunk_energy`, `_triples_total_strict`,
 `do_ccsd_t_spinorb` with its mesh branch `:431-438`).
 Re-implements do_ccsd_t_spinorb (ccsd.f90:1812-1922):
@@ -12,18 +12,23 @@ Re-implements do_ccsd_t_spinorb (ccsd.f90:1812-1922):
 
 over the STRICT triangle i<j<k only (the summand is S3-symmetric and
 vanishes on diagonals, so 6x weight on C(o,3) triples replaces the
-reference's o^3 cube).  Three tiers, all f64:
+reference's o^3 cube).  Four tiers:
 
   "fused"  — K1, `ops/triples_cuda.triples_fused`: the numerator
-             products and the reduction in hand-written CUDA;
-  "pallas" — the numerator panels as torch einsums per chunk
-             (`_chunk_panels`), then K2, `ops/triples_cuda.triples_finale`;
+             products and the reduction in hand-written CUDA, f64;
+  "pallas" — the numerator panels as f64 torch einsums per chunk
+             (`_chunk_panels`), then K2, `ops/triples_cuda.triples_finale`
+             (JAX's panels here are f32; the port's K2 is an f64 kernel,
+             so its panels stay f64);
+  "hybrid" — JAX's f32 strict-chunk tier: the operands cast to f32 once,
+             the panel GEMMs and P(a/bc) in f32, the denominator and the
+             reduction in f64 (`_strict_chunk_energy`);
   "f64"    — plain torch throughout.
 
-The default is "fused" on a CUDA device (no nvirt cap) and "f64" on the
-CPU.  "hybrid" (f32 panel GEMMs on the TPU) is taken as "f64".  A kernel
-that fails raises: the JAX package's degrade-to-hybrid memo is not
-carried over.
+The default is "fused" on a CUDA device (no nvirt cap, so the card needs
+no switch to "hybrid" above 128 virtuals as the TPU does) and "hybrid"
+on the CPU, as the JAX package's off a TPU.  A kernel that fails raises:
+the JAX package's degrade-to-hybrid memo is not carried over.
 
 Under a device mesh each entry runs the tier one device would run (the
 choice above, kept) on its contiguous share of the strict list
@@ -47,8 +52,8 @@ from ..ops.triples_cuda import triples_finale, triples_finale_plain, triples_fus
 from .ccsd_spinorb import CCSDSpinorbResult
 
 es = torch.einsum
-PRECISIONS = ("f64", "pallas", "fused")
-# memory budget of one chunk's ~12 live (C, v^3) f64 transients
+PRECISIONS = ("f64", "hybrid", "pallas", "fused")
+# memory budget of one chunk's ~12 live (C, v^3) transients
 _CHUNK_BYTES = 4e9
 
 
@@ -109,13 +114,14 @@ def strict_triple_list(nocc: int):
     return ii[m], jj[m], kk[m]
 
 
-def _pick_clen(nvirt: int, total: int) -> int:
-    """Largest per-chunk triple count whose ~12 live (C, v^3) f64
-    transients fit _CHUNK_BYTES."""
-    return max(1, min(total, int(_CHUNK_BYTES / (12 * 8 * nvirt**3))))
+def _pick_clen(nvirt: int, total: int, precision: str = "f64") -> int:
+    """Largest per-chunk triple count whose ~12 live (C, v^3) transients
+    fit _CHUNK_BYTES: 4 B an element for "hybrid"'s f32 panels, else 8."""
+    el = 4 if precision == "hybrid" else 8
+    return max(1, min(total, int(_CHUNK_BYTES / (12 * el * nvirt**3))))
 
 
-def strict_plan(nocc: int, nvirt: int):
+def strict_plan(nocc: int, nvirt: int, precision: str = "f64"):
     """(ii, jj, kk, clen) for the strict-triangle grid: the triple list
     padded with (0,0,0) entries — which contribute exactly zero, since
     every numerator term then carries a vanishing t2[p,p] / <pp||bc> /
@@ -124,7 +130,7 @@ def strict_plan(nocc: int, nvirt: int):
     total = len(ii)
     if total == 0:
         return ii, jj, kk, 1
-    clen = _pick_clen(nvirt, total)
+    clen = _pick_clen(nvirt, total, precision)
     npad = -(-total // clen) * clen - total
     pad = np.zeros(npad, dtype=np.int32)
     return (
@@ -137,7 +143,9 @@ def strict_plan(nocc: int, nvirt: int):
 
 def _strict_chunk_energy(iii, jjj, kkk, t1, t2, vovv, ovoo, oovv, e_o, e_v, precision: str):
     """Sum of E(T)*6 contributions of one chunk of strict triples (the
-    global 1/6 is applied by the caller)."""
+    global 1/6 is applied by the caller).  The operands arrive cast (f32
+    for "hybrid"); e_o/e_v stay f64, so the denominator, the quotient
+    and the reduction are f64 on every tier."""
     t3c, t3d = _chunk_panels(iii, jjj, kkk, t1, t2, vovv, ovoo, oovv)
     eo_sum = e_o[iii] + e_o[jjj] + e_o[kkk]
     finale = triples_finale if precision == "pallas" else triples_finale_plain
@@ -151,7 +159,10 @@ def _triples_total_strict(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk, *,
     multiple of clen (strict_plan) and summed chunk by chunk."""
     if precision == "fused":
         return triples_fused(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk) / 6.0
-    total = t1.new_zeros(())
+    if precision == "hybrid":
+        # the f64->f32 operand casts once, outside the chunk loop
+        t1, t2, vovv, ovoo, oovv = (x.float() for x in (t1, t2, vovv, ovoo, oovv))
+    total = e_o.new_zeros(())
     for c0 in range(0, ii.shape[0], clen):
         sl = slice(c0, c0 + clen)
         total = total + _strict_chunk_energy(
@@ -170,16 +181,13 @@ def do_ccsd_t_spinorb(
     mesh=None,
 ) -> float:
     """Returns e_ccsd_t = e_ccsd + E(T) (ccsd.f90:1917), on the device of
-    the amplitudes.  precision: "fused" | "pallas" | "f64" ("hybrid" is
-    taken as "f64"); None picks "fused" on CUDA and "f64" on the CPU.
-    With `mesh` the tier runs on each entry's share of the triples
-    (module docstring)."""
+    the amplitudes.  precision: "fused" | "pallas" | "hybrid" | "f64";
+    None picks "fused" on CUDA and "hybrid" on the CPU.  With `mesh` the
+    tier runs on each entry's share of the triples (module docstring)."""
     t1 = cc.t1
     dev = t1.device
     if precision is None:
-        precision = "fused" if dev.type == "cuda" else "f64"
-    elif precision == "hybrid":
-        precision = "f64"
+        precision = "fused" if dev.type == "cuda" else "hybrid"
     if precision not in PRECISIONS:
         raise ValueError(f"triples precision must be one of {PRECISIONS}, got {precision!r}")
     rep = rep or Reporter()
@@ -201,7 +209,7 @@ def do_ccsd_t_spinorb(
             ii, jj, kk = strict_triple_list(nocc)
             clen = len(ii)
         else:
-            ii, jj, kk, clen = strict_plan(nocc, t1.shape[1])
+            ii, jj, kk, clen = strict_plan(nocc, t1.shape[1], precision)
         if len(ii):
             idx = (torch.as_tensor(x, dtype=torch.long, device=dev) for x in (ii, jj, kk))
             e_t = float(_triples_total_strict(*args, *idx, clen=clen, precision=precision))

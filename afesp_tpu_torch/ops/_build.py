@@ -1,17 +1,25 @@
 """Build the CUDA kernels of `csrc/` with `nvcc` and load them with ctypes.
 
-Each `csrc/<name>.cu` becomes `_build/lib<name>-<hash>.so`, a shared
-library with a plain C interface; `<hash>` is taken over every file in
-`csrc/`, so an edited source never loads a stale library.  The build
-runs at first use, one `nvcc` per source, all started together and each
-bounded by `NVCC_TIMEOUT_S`.  There is no lock: each compiler writes a
-file of its own, which is renamed into place when it is complete.
-(No JAX counterpart: Pallas kernels are compiled by XLA.)
+Each `csrc/<name>.cu` becomes `_build/lib<name>-<key>.so`, a shared
+library with a plain C interface; `<key>` is taken over every file in
+`csrc/`, `NVCC_FLAGS` and the output of `nvcc --version`, so neither an
+edited source nor a library built by another toolchain or with other
+flags is ever loaded.  The key is computed once a process; without a
+CUDA toolkit (a CPU run) it takes the toolchain as absent and never runs
+`nvcc`.  The build runs at first use, or ahead of it (`warmup.py`), one
+`nvcc` per source, all started together and each bounded by
+`NVCC_TIMEOUT_S`; a build that compiled records the environment in the
+build directory's fingerprint (`cachemeta.py`).  There is no lock: each
+compiler writes a file of its own, which is renamed into place when it
+is complete, and `load` waits for a compile-ahead build in flight before
+it builds anything itself.  (No JAX counterpart: Pallas kernels are
+compiled by XLA.)
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,18 +41,39 @@ CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
+def _find_nvcc() -> str | None:
+    return shutil.which("nvcc") or (str(CUDA_NVCC) if CUDA_NVCC.exists() else None)
+
+
 def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or (str(CUDA_NVCC) if CUDA_NVCC.exists() else None)
+    nvcc = _find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return nvcc
 
 
+@functools.cache
+def nvcc_version() -> str:
+    """`nvcc --version` of the compiler `build` would run, "" when there
+    is none.  Run once a process."""
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        return ""
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60,
+                         check=True)
+    return out.stdout.strip()
+
+
+@functools.cache
 def _source_hash() -> str:
+    """The libraries' key: every file of csrc/, NVCC_FLAGS and the
+    toolchain's version."""
     h = hashlib.sha256()
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     return h.hexdigest()[:16]
 
 
@@ -87,14 +116,22 @@ def build(names: list[str]) -> dict[str, dict]:
             continue
         os.replace(tmp, lib_path(n))
         out[n] = {"seconds": time.perf_counter() - t0, "log": log}
+    if out:
+        from .. import cachemeta
+
+        cachemeta.record(BUILD_DIR)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return out
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu`, built first if needed,
+    after any compile-ahead build in flight (whose failure it raises)."""
     if name not in _LIBS:
+        from .. import warmup
+
+        warmup.join()
         build([name])
         _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
     return _LIBS[name]

@@ -9,17 +9,20 @@ over an equal contiguous share of the work list that tier walks, and
 the partial sums are added on the first entry in mesh order:
 
   spin-orbital — the strict i<j<k list: K1 ("fused") takes its share
-      whole; "pallas" (panels + K2) and "f64" take their share padded
-      with (0,0,0) triples, which contribute exactly zero, to whole
-      chunks, as in JAX;
+      whole; "pallas" (panels + K2), "hybrid" and "f64" take their share
+      padded with (0,0,0) triples, which contribute exactly zero, to
+      whole chunks, as in JAX;
   restricted — the sorted i<=j<=k triples with their orbit weights (K3
       "fused", K4 "tiled"), or the (i, j-slab) grid ("pallas" panels +
-      K5, "f64"), padded to a multiple of the mesh size with weight-0
-      cells, as in JAX.
+      K5, "hybrid", "f64"), padded to a multiple of the mesh size with
+      weight-0 cells, as in JAX.
 
 The amplitudes and ERI slices are copied whole to every entry (JAX
 replicates them, for the reasons in its docstring); only the v_vvvv
-operand of CCSD is split (`ccsd_shard.py`).  `triples_energy_sharded`
+operand of CCSD is split (`ccsd_shard.py`).  Under "hybrid" the operands
+of the f32 GEMMs are cast to f32 before they are copied, as JAX
+downcasts before placement, so each entry holds half the bytes; the
+orbital energies stay f64.  `triples_energy_sharded`
 is the full-cube oracle of the parity tests.
 """
 
@@ -57,7 +60,8 @@ def _add(acc, part):
 def triples_total_sharded(mesh: Mesh, t1, t2, vovv, ovoo, oovv, e_o, e_v, *, nocc: int,
                           precision: str = "f64") -> float:
     """Spin-orbital E(T) over the strict i<j<k triples, the tier
-    `precision` ("fused", "pallas" or "f64") on each entry's share."""
+    `precision` ("fused", "pallas", "hybrid" or "f64") on each entry's
+    share."""
     from ..methods.triples_spinorb import _pick_clen, _triples_total_strict, strict_triple_list
 
     ii, jj, kk = strict_triple_list(nocc)
@@ -70,10 +74,12 @@ def triples_total_sharded(mesh: Mesh, t1, t2, vovv, ovoo, oovv, e_o, e_v, *, noc
         clen = per = per_raw  # K1 chunks its share itself
     else:
         # equal whole-chunk shares, padded with zero-contribution (0,0,0)s
-        clen = _pick_clen(e_v.shape[0], per_raw)
+        clen = _pick_clen(e_v.shape[0], per_raw, precision)
         per = -(-per_raw // clen) * clen
         pad = np.zeros(per * ndev - total, dtype=np.int32)
         ii, jj, kk = (np.concatenate([x, pad]) for x in (ii, jj, kk))
+    if precision == "hybrid":
+        t1, t2, vovv, ovoo, oovv = (x.float() for x in (t1, t2, vovv, ovoo, oovv))
     args = (t1, t2, vovv, ovoo, oovv, e_o, e_v)
     acc = None
     for s, dev in enumerate(mesh.devices):
@@ -92,11 +98,14 @@ def triples_spatial_sharded(mesh: Mesh, t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v
     """The six restricted triples sums (in `triples_spatial._SUM_KEYS`
     order, as 0-d tensors on the first entry's device), the tier
     `precision` on each entry's share: the sorted triples for "fused"
-    and "tiled", the (i, j-slab) grid for "pallas" and "f64"."""
+    and "tiled", the (i, j-slab) grid for "pallas", "hybrid" and "f64"."""
     from ..methods import triples_spatial as TS
     from ..ops.triples_spatial_cuda import triples_fused_spatial, triples_tiled_spatial
 
     flags = dict(doing_T=doing_T, doing_R=doing_R, doing_CR=doing_CR)
+    if precision == "hybrid":
+        t1, t2, v_vvov, v_oovo, v_oovv, I_vovv_pp, I_ooov_pp = (
+            x.float() for x in (t1, t2, v_vvov, v_oovo, v_oovv, I_vovv_pp, I_ooov_pp))
     args = (t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I_vovv_pp, I_ooov_pp)
     first, ndev = mesh.devices[0], mesh.size
     acc = None

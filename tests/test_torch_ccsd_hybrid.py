@@ -10,9 +10,10 @@ for line with the timings and dates masked.  The report prints energies
 to twelve decimals, and the two arithmetics agree to ~1e-11 (a digit of
 an in-loop operand can round the other way when its f64 input differs
 in the last bit), so a last printed digit can differ: the numbers of
-each line are compared within 1e-10, the rest of the line as text.  The
-JAX driver's triples run at f64, the port's CPU tier (its f32 "hybrid"
-triples tier is not ported)."""
+each line are compared within 1e-10, the rest of the line as text.  Both
+drivers' triples run at f64 (each driver's do_ccsd_t_spatial is called
+with precision="f64"): their CPU tier at ccsd_precision = "hybrid" is
+the f32 one, held in tests/test_torch_triples_hybrid.py."""
 
 import functools
 import io
@@ -23,6 +24,7 @@ import torch
 from torch_fixtures import table_energies, write_els_in, write_h2o
 
 import afesp_tpu.driver as jdriver
+import afesp_tpu_torch.driver as tdriver
 from afesp_tpu.io.report import Reporter as JaxReporter
 from afesp_tpu.methods import ccsd_spatial as jsp
 from afesp_tpu.methods import ccsd_spinorb as jso
@@ -31,6 +33,7 @@ from afesp_tpu_torch.driver import run_calculation
 from afesp_tpu_torch.io.report import Reporter
 from afesp_tpu_torch.methods import ccsd_spatial as tsp
 from afesp_tpu_torch.methods import ccsd_spinorb as tso
+from afesp_tpu_torch.methods.triples_spatial import do_ccsd_t_spatial as port_ccsd_t_spatial
 
 HYBRID = 'ccsd_precision = "hybrid",\n'
 CASES = [("CCSD_spatial", ""), ("CRCCSD(T)_spatial", ""),
@@ -85,7 +88,10 @@ def test_hybrid_ccsd_matches_jax(tmp_path, h2o, calc, extra):
     write_els_in(tmp_path, calc, HYBRID + extra)
     jres, jtext, picked = _jax_run(tmp_path)
     rep = Reporter(stream=io.StringIO())
-    res = run_calculation(tmp_path, rep, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdriver, "do_ccsd_t_spatial",
+                   functools.partial(port_ccsd_t_spatial, precision="f64"))
+        res = run_calculation(tmp_path, rep, device="cpu")
     text = rep.stream.getvalue()
 
     # the arithmetic: JAX's hybrid solver, the port's digit-GEMM iteration

@@ -13,6 +13,7 @@ import torch
 from torch_fixtures import breakdown_block, table_energies, write_els_in, write_h2o
 
 import afesp_tpu.driver as jdriver
+import afesp_tpu_torch.driver as tdriver
 from afesp_tpu.io import dat as jdat
 from afesp_tpu.io.report import Reporter as JaxReporter
 from afesp_tpu.methods import mp2 as jmp2
@@ -22,6 +23,7 @@ from afesp_tpu_torch.cli import main as cli_main
 from afesp_tpu_torch.driver import run_calculation
 from afesp_tpu_torch.io.report import Reporter
 from afesp_tpu_torch.methods import mp2 as tmp2
+from afesp_tpu_torch.methods.triples_spinorb import do_ccsd_t_spinorb as port_ccsd_t
 from afesp_tpu_torch.parallel import mesh as pmesh
 
 
@@ -44,9 +46,16 @@ def _run_jax(wd, triples_f64: bool = False):
     return res, rep.stream.getvalue()
 
 
-def _run_port(wd):
+def _run_port(wd, triples_f64: bool = False):
     rep = Reporter(stream=io.StringIO())
-    res = run_calculation(wd, rep, device="cpu")
+    if triples_f64:
+        # the port's CPU default spin-orbital tier is "hybrid" too
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tdriver, "do_ccsd_t_spinorb",
+                       functools.partial(port_ccsd_t, precision="f64"))
+            res = run_calculation(wd, rep, device="cpu")
+    else:
+        res = run_calculation(wd, rep, device="cpu")
     return res, rep.stream.getvalue()
 
 
@@ -55,11 +64,17 @@ def port_run(h2o):
     return _run_port(h2o)
 
 
-def test_breakdown_matches_jax_driver(h2o, port_run):
-    """The breakdown block equals the JAX driver's (its triples at f64)
-    in every printed digit, with equal SCF and CC iteration counts."""
+@pytest.fixture(scope="module")
+def port_run_f64(h2o):
+    return _run_port(h2o, triples_f64=True)
+
+
+def test_breakdown_matches_jax_driver(h2o, port_run_f64):
+    """The breakdown block equals the JAX driver's, both drivers' triples
+    at f64, in every printed digit, with equal SCF and CC iteration
+    counts."""
     jres, jtext = _run_jax(h2o, triples_f64=True)
-    res, text = port_run
+    res, text = port_run_f64
     assert breakdown_block(text) == breakdown_block(jtext)
     assert len(breakdown_block(text)) == 12
     for header in ("delta RMS D", "delta RMS T2"):
@@ -68,8 +83,8 @@ def test_breakdown_matches_jax_driver(h2o, port_run):
 
 
 def test_totals_match_jax_default_driver(h2o, port_run):
-    """Against the JAX driver exactly as it runs on the CPU (hybrid
-    triples): every total within 1e-8 Ha, equal iteration counts."""
+    """Both drivers exactly as they run on the CPU (both at the "hybrid"
+    triples tier): every total within 1e-8 Ha, equal iteration counts."""
     jres, jtext = _run_jax(h2o)
     res, text = port_run
     for key in ("e_hf", "e_mp2", "e_ccsd", "e_ccsd_t"):
@@ -117,7 +132,7 @@ def test_unported_paths_raise(tmp_path, h2o, calc, extra, eri_npy_only, monkeypa
     write_els_in(tmp_path, calc, extra)
     monkeypatch.setattr(pmesh, "visible_devices", lambda dev: [dev, dev])
     jres, jtext = _run_jax(tmp_path, triples_f64=not eri_npy_only)
-    res, text = _run_port(tmp_path)
+    res, text = _run_port(tmp_path, triples_f64=not eri_npy_only)
     assert breakdown_block(text) == breakdown_block(jtext)
     assert abs(res.total_energy - jres.total_energy) < 1e-10
     assert res.hf.iterations == len(table_energies(jtext, "delta RMS D"))

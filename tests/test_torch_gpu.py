@@ -697,3 +697,79 @@ def test_mesh_on_two_cards():
         for digits in (False, True):
             X, sl, want = _vvvv_cases(torch.device("cuda", 0), spin, digits)
             _vvvv_agrees(CSH.vvvv_shards(mesh, sl, digits)(X), want, digits)
+
+
+# the f32 tiers against the f64 kernels on seeded inputs, relative to each
+# value: ~30 f32 units (measured on the card: at most 3.9e-7 of a sum)
+F32_REL = 2e-6
+
+
+def _random_cr_inputs(o: int, v: int, seed: int = 5):
+    """Random amplitudes, stale amplitudes and restricted slices for
+    cr_intermediates, as CPU tensors."""
+    import numpy as np
+
+    from afesp_tpu_torch.methods.ccsd_spatial import Slices
+
+    rng = np.random.default_rng(seed)
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s) * 0.05)
+    amps = (r(o, v), r(o, o, v, v), r(o, v), r(o, o, v, v))
+    slices = Slices(r(o, o, v, v), r(o, v, o, v), r(v, v, o, v), r(o, o, v, o), r(o, o, o, o),
+                    r(v, v, v, v))
+    return amps, slices
+
+
+@pytest.mark.parametrize("o,v", [(6, 10), (10, 106)])
+def test_spinorb_hybrid_tier_on_the_card_matches_the_cpu(o, v):
+    """The f32 strict-chunk tier on the card (cuBLAS sgemm, f64 quotient
+    and sum) against the same on the CPU within 1e-9 Ha, and against the
+    card's f64 K1 tier within F32_REL of E(T) (these seeded inputs give
+    E(T) from -0.025 to -1706 Ha, so JAX's 5e-9 between its tiers, which
+    chip_smoke.py holds on the paths' amplitudes, is no bound here); f32
+    means f32 there, not TF32."""
+    dev = _card()
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    out = {}
+    for d in ("cpu", dev):
+        args, _ = _problem(d, o, v)
+        ii, jj, kk, clen = T.strict_plan(o, v, "hybrid")
+        idx = tuple(torch.as_tensor(x, dtype=torch.long, device=d) for x in (ii, jj, kk))
+        out[str(d)] = float(T._triples_total_strict(*args, *idx, clen=clen, precision="hybrid"))
+    args, idx = _problem(dev, o, v)
+    fused = float(T._triples_total_strict(*args, *idx, clen=len(idx[0]), precision="fused"))
+    assert abs(out[str(dev)] - out["cpu"]) < 1e-9
+    assert abs(out[str(dev)] - fused) <= F32_REL * abs(fused) and out[str(dev)] != fused
+
+
+@pytest.mark.parametrize("o,v", [(5, 53), (6, 80)])
+def test_spatial_hybrid_tier_on_the_card_matches_the_cpu(o, v):
+    """The six restricted sums of the f32 slab tier on the card against
+    the CPU within 1e-9, and against K3 on the card within F32_REL of
+    each sum; the f32 CR chain on the card against the CPU's within 1e-6
+    of its largest element (f32 roundings in another order)."""
+    import numpy as np
+
+    dev = _card()
+    flags = dict(doing_T=True, doing_R=True, doing_CR=True)
+    jlen = TS.pick_spatial_jlen(o, v, "hybrid")
+    out = {}
+    for d in ("cpu", dev):
+        args = tuple(torch.as_tensor(x, dtype=F64, device=d)
+                     for x in random_spatial_problem(o, v))
+        out[str(d)] = torch.stack(TS._triples_total_spatial(
+            *args, nocc=o, jlen=jlen, precision="hybrid", **flags)).cpu().numpy()
+    (si, sj, sk), w = TS._sorted_plan(o, dev)
+    s = S.triples_fused_spatial(*args, si, sj, sk, w, **flags)
+    k3 = torch.stack([s[0], s[0] + s[1], s[2], s[2] + s[3], s[4], s[4] + s[5]]).cpu().numpy()
+    assert np.abs(out[str(dev)] - out["cpu"]).max() < 1e-9
+    assert np.all(np.abs(out[str(dev)] - k3) <= F32_REL * np.abs(k3))
+
+    amps, slices = _random_cr_inputs(o, v)
+    want = TS.cr_intermediates(*amps, slices, o, precision="hybrid")
+    moved = type(slices)(*(x.to(dev) for x in (slices.v_oovv, slices.v_ovov, slices.v_vvov,
+                                                slices.v_oovo, slices.v_oooo, slices.v_vvvv)))
+    got = TS.cr_intermediates(*(x.to(dev) for x in amps), moved, o, precision="hybrid")
+    for g, w_ in zip(got, want):
+        assert g.dtype == torch.float32
+        assert float((g.cpu() - w_).abs().max()) <= 1e-6 * float(w_.abs().max())

@@ -7,15 +7,20 @@ CCSD's sub-mesh to be the whole mesh (its solve and its limbs must share
 one device set), so the width is one that divides N2's nvirt 21; at
 H2O's nvirt 19, or at N2's width 8, JAX's run stops on "incompatible
 devices".  The port runs there: at width 8 (limbs padded to 8) its
-breakdown equals its width-7 one within 1e-10."""
+breakdown equals its width-7 one within 1e-10, both with the triples at
+precision="f64" (mesh_driver_parity's; the CPU tier at "hybrid" is the
+f32 one, tests/test_torch_triples_hybrid.py)."""
 
+import functools
 import io
 
 import pytest
 from torch_fixtures import breakdown_block, mesh_driver_parity, write_els_in, write_n2
 
+import afesp_tpu_torch.driver as tdriver
 from afesp_tpu_torch.driver import run_calculation
 from afesp_tpu_torch.io.report import Reporter
+from afesp_tpu_torch.methods.triples_spatial import do_ccsd_t_spatial
 
 
 @pytest.fixture(scope="module")
@@ -29,6 +34,8 @@ def test_driver_mesh_stream_matches_jax(tmp_path, n2, monkeypatch):
     assert res.cc.converged
     write_els_in(tmp_path, "CRCCSD(T)_spatial", 'mesh_devices = 8,\nccsd_precision = "hybrid",\n')
     rep = Reporter(stream=io.StringIO())
+    monkeypatch.setattr(tdriver, "do_ccsd_t_spatial",
+                        functools.partial(do_ccsd_t_spatial, precision="f64"))
     res8 = run_calculation(tmp_path, rep, device="cpu")
     assert " Using a 8-device mesh for CC stages." in rep.stream.getvalue()
     assert res8.cc.iterations == res.cc.iterations

@@ -13,7 +13,9 @@ stream, with the HF dense and, with _TPU_FOCK_NBASIS at 20 in both
 packages, through the stream Fock build and the prelude: the reports
 equal line for line with the timings masked and each number within
 1e-10, equal counts, CCSD within 1e-10 and the six triples energies
-within 1e-10 of JAX's f64 triples on JAX's own amplitudes and CR term.
+within 1e-10 of JAX's f64 triples on JAX's own amplitudes and CR term
+(both drivers' triples called at precision="f64": their CPU tier at
+"hybrid" is the f32 one, held in tests/test_torch_triples_hybrid.py).
 And the two refusals of the tier, with JAX's exception and message.
 """
 
@@ -28,6 +30,7 @@ import torch
 from torch_fixtures import table_energies, write_els_in, write_h2o
 
 import afesp_tpu.driver as jdriver
+import afesp_tpu_torch.driver as tdriver
 from afesp_tpu.io.report import Reporter as JaxReporter
 from afesp_tpu.methods import ccsd_spatial as jsp
 from afesp_tpu.methods import hf as jhf
@@ -40,6 +43,7 @@ from afesp_tpu_torch.io.report import Reporter
 from afesp_tpu_torch.methods import ccsd_spatial as tsp
 from afesp_tpu_torch.methods import hf as thf
 from afesp_tpu_torch.methods import mo_slices as tms
+from afesp_tpu_torch.methods.triples_spatial import do_ccsd_t_spatial as port_ccsd_t_spatial
 
 _t = torch.from_numpy
 
@@ -262,6 +266,8 @@ def test_driver_stream_tier_matches_jax(tmp_path, h2o, monkeypatch, stream_fock)
     wd = _stage(tmp_path, h2o, "CRCCSD(T)_spatial", STREAM)
     jres, jtext = _jax_run(wd)
     rep = Reporter(stream=io.StringIO())
+    monkeypatch.setattr(tdriver, "do_ccsd_t_spatial",
+                        functools.partial(port_ccsd_t_spatial, precision="f64"))
     res = run_calculation(wd, rep, device="cpu")
     text = rep.stream.getvalue()
 

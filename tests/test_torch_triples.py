@@ -133,8 +133,9 @@ def h2o_cc(tmp_path_factory):
 @pytest.mark.parametrize("precision", [None, "f64", "pallas", "fused", "hybrid"])
 def test_ccsd_t_on_jax_amplitudes(h2o_cc, precision):
     """do_ccsd_t_spinorb on the JAX CCSD amplitudes and slices, every tier
-    (None picks "f64" on the CPU; "hybrid" runs f64): E(T) within 1e-9 of
-    the JAX f64 tier, and the report line in its format."""
+    (None picks "hybrid", the f32 panel tier, on the CPU, as JAX does):
+    E(T) within 1e-9 of the JAX f64 tier, and the report line in its
+    format."""
     sys_, cfg, hf, cc, e_t = h2o_cc
     st = from_jax(device="cpu", cc=cc)
     rep = Reporter(stream=io.StringIO())

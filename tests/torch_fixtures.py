@@ -159,7 +159,7 @@ def mesh_driver_parity(wd: Path, src: Path, calc: str, width: int, precision: st
                        monkeypatch, sub_size=None, stream: bool = False):
     """Both drivers at mesh_devices = width on `src`'s inputs (staged in
     `wd`), the port's visible devices eight CPU entries, JAX's its eight
-    CPU devices, JAX's triples at f64 (the port's every tier), and the
+    CPU devices, both drivers' triples called at precision="f64", and the
     checks of tests/test_torch_parallel_*.py: the reports equal line for
     line with the timings masked, the mesh line included, each number
     within 1e-10 (or one unit of its last printed decimal), equal SCF and
@@ -176,8 +176,11 @@ def mesh_driver_parity(wd: Path, src: Path, calc: str, width: int, precision: st
     from afesp_tpu.methods.triples_spinorb import do_ccsd_t_spinorb
     from afesp_tpu.parallel import ccsd_shard as jcs
 
+    import afesp_tpu_torch.driver as tdriver
     from afesp_tpu_torch.driver import run_calculation
     from afesp_tpu_torch.io.report import Reporter
+    from afesp_tpu_torch.methods import triples_spatial as tts
+    from afesp_tpu_torch.methods import triples_spinorb as tto
     from afesp_tpu_torch.parallel import ccsd_shard as tcs
     from afesp_tpu_torch.parallel import mesh as tmesh
 
@@ -207,7 +210,12 @@ def mesh_driver_parity(wd: Path, src: Path, calc: str, width: int, precision: st
         jres = jdriver.run_calculation(wd, rep)
     jtext = rep.stream.getvalue()
     rep = Reporter(stream=io.StringIO())
-    res = run_calculation(wd, rep, device="cpu")
+    with monkeypatch.context() as mp:
+        mp.setattr(tdriver, "do_ccsd_t_spatial",
+                   functools.partial(tts.do_ccsd_t_spatial, precision="f64"))
+        mp.setattr(tdriver, "do_ccsd_t_spinorb",
+                   functools.partial(tto.do_ccsd_t_spinorb, precision="f64"))
+        res = run_calculation(wd, rep, device="cpu")
     text = rep.stream.getvalue()
 
     mesh_line = f" Using a {width}-device mesh for CC stages."
