@@ -22,10 +22,13 @@ cache), and right after the read-in `warmup.start` builds the kernels
 the triples stage will load while RHF, MP2 and CCSD run.  With
 AFESP_TORCH_PROFILE=<dir> (JAX: AFESP_JAX_PROFILE and jax.profiler) the
 run is traced by torch.profiler, CPU and, on a card, CUDA activities,
-with one `record_function` range for each stage section of the report
-("Integral read-in", "Restricted Hartree-Fock", "MP2", "CCSD",
-"CCSD(T)"), and a Chrome trace is written into <dir> when the run ends
+with one `record_function` range for each span of `trace.py`: the root
+`calc`, each stage section of the report ("Integral read-in",
+"Restricted Hartree-Fock", "MP2", "CCSD", "CCSD(T)") and the spans
+inside them, and a Chrome trace is written into <dir> when the run ends
 or raises.  Without the variable there is no profiler and no range.
+With `trace.enable()` the same spans are recorded in memory, one record
+a calculation.
 
 The device mesh follows JAX's width rule (`afesp_tpu/driver.py:112-129`): 0 and 1
 run on one device, -1 means every visible device (`parallel.mesh.
@@ -46,7 +49,7 @@ from pathlib import Path
 
 import torch
 
-from . import cachemeta, warmup
+from . import cachemeta, trace, warmup
 from .config import CalcType, Config, read_els_in
 from .device import default_device
 from .io import dat
@@ -86,10 +89,9 @@ class RunResult:
 
 @contextlib.contextmanager
 def _profiled(directory: str, dev: torch.device):
-    """torch.profiler around the run; its Chrome trace is written into
-    `directory` when the run ends or raises.  Yields the `record_function`
-    of the stage ranges."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """torch.profiler around the run, each span a range of it; its Chrome
+    trace is written into `directory` when the run ends or raises."""
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -99,14 +101,11 @@ def _profiled(directory: str, dev: torch.device):
     prof = profile(activities=activities)
     prof.start()
     try:
-        yield record_function
+        with trace.ranges():
+            yield
     finally:
         prof.stop()
         prof.export_chrome_trace(str(out / f"afesp_torch_{os.getpid()}_{time.time_ns()}.json"))
-
-
-def _no_range(name: str):
-    return contextlib.nullcontext()
 
 
 def run_calculation(
@@ -121,16 +120,13 @@ def run_calculation(
         # compile cache (a mismatch warns, the run goes on)
         cachemeta.check(_build.BUILD_DIR)
     profile_dir = os.environ.get(PROFILE_ENV)
-    if not profile_dir:
-        return _run(workdir, rep, cfg, dev, _no_range)
-    with _profiled(profile_dir, dev) as stage:
-        return _run(workdir, rep, cfg, dev, stage)
+    with _profiled(profile_dir, dev) if profile_dir else contextlib.nullcontext():
+        with trace.span("calc"):
+            return _run(workdir, rep, cfg, dev)
 
 
-def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device,
-         stage) -> RunResult:
-    """run_calculation's pipeline; `stage(name)` is the context of each
-    report section's profiler range."""
+def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device) -> RunResult:
+    """run_calculation's pipeline, a span for each report section."""
     rep = rep or Reporter()
     workdir = Path(workdir)
     t_glob = time.perf_counter()
@@ -140,7 +136,7 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device,
     if cfg is None:
         cfg = read_els_in(workdir)
 
-    with stage("Integral read-in"):
+    with trace.span("Integral read-in"):
         rep.section("Integral read-in")
         rep.write(" Getting number of basis functions...")
         rep.write(" Allocating integral store...")
@@ -176,21 +172,21 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device,
             mesh = pmesh.default_mesh(want, dev)
             rep.write(f" Using a {want}-device mesh for CC stages.")
 
-    with stage("Restricted Hartree-Fock"):
+    with trace.span("Restricted Hartree-Fock"):
         hf = hf_mod.do_rhf(sys_, ints, cfg, rep, workdir, device=dev)
     res.hf = hf
     res.e_hf = hf.e_hf
     res.e_highest = 0.0
 
     if cfg.wants_mp2:
-        with stage("MP2"):
+        with trace.span("MP2"):
             mp2 = mp2_mod.do_mp2_spatial(sys_, ints, cfg, hf, rep, workdir, device=dev)
         res.e_mp2 = mp2.e_mp2
         res.e_highest = mp2.e_mp2
 
         if cfg.wants_ccsd and cfg.restricted:
             t_cc = time.perf_counter()
-            with stage("CCSD"):
+            with trace.span("CCSD"):
                 cc = do_ccsd_spatial(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
                                      slices=mp2.slices, vvvv_B=mp2.vvvv_B, mesh=mesh)
             mp2.vvvv_B = None  # the limbs' last reader was the CC stage
@@ -202,7 +198,7 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device,
             res.t1_diagnostic = cc.t1_diagnostic
             res.e_highest = cc.e_ccsd
             if cfg.wants_triples:
-                with stage("CCSD(T)"):
+                with trace.span("CCSD(T)"):
                     tr = do_ccsd_t_spatial(sys_, cc, cfg, hf.levels, rep, mesh=mesh)
                 res.triples = tr
                 res.e_highest = tr.e_highest
@@ -215,7 +211,7 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device,
                     " use a *_spatial calc_type at this scale"
                 )
             t_cc = time.perf_counter()
-            with stage("CCSD"):
+            with trace.span("CCSD"):
                 cc = do_ccsd_spinorb(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
                                      mesh=mesh)
             rep.stage_time(
@@ -225,7 +221,7 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device,
             res.e_ccsd = cc.e_ccsd
             res.e_highest = cc.e_ccsd
             if cfg.wants_triples:
-                with stage("CCSD(T)"):
+                with trace.span("CCSD(T)"):
                     e_t = do_ccsd_t_spinorb(sys_, cc, cfg, hf.levels, rep, mesh=mesh)
                 res.e_ccsd_t = e_t
                 res.e_highest = e_t

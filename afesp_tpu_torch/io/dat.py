@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.packed_eri import unpack_eri
 from . import fastparse
 
@@ -63,14 +64,16 @@ class IntStore:
 
     def _upload_packed(self, dev: torch.device) -> torch.Tensor:
         """The packed store on `dev`: the one upload both device forms
-        are made from (only the packed elements cross PCIe)."""
+        are made from (only the packed elements cross PCIe), the span
+        `eri.upload` (`trace.py`)."""
         if self._packed_dev is not None and self._packed_dev.device == dev:
             return self._packed_dev
-        if self.eri_packed is not None:
-            return torch.as_tensor(self.eri_packed, dtype=torch.float64, device=dev)
-        from ..ops.packed_eri import pack_eri
+        with trace.span("eri.upload"):
+            if self.eri_packed is not None:
+                return torch.as_tensor(self.eri_packed, dtype=torch.float64, device=dev)
+            from ..ops.packed_eri import pack_eri
 
-        return pack_eri(torch.as_tensor(self.eri, dtype=torch.float64, device=dev))
+            return pack_eri(torch.as_tensor(self.eri, dtype=torch.float64, device=dev))
 
     def eri_on_device(self, device: str | torch.device) -> torch.Tensor:
         """The dense ERI on `device`, made once and cached, as the JAX

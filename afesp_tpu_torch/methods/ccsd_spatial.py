@@ -50,6 +50,7 @@ from pathlib import Path
 
 import torch
 
+from .. import trace
 from ..config import Config
 from ..device import F64, default_device
 from ..io import dat
@@ -517,6 +518,7 @@ def do_ccsd_spatial(
     rep.cc_table_header()
 
     energy, r0_h = torch.stack([e0, r0]).tolist()
+    trace.synced()
     rep.cc_row("MP1", energy, energy, r0_h)
     state = init_cc_state(t1, t2, cfg.ccsd_diis_n_errmat)
     args = (state, v, D_ia, D_ijab, v.v_oovv, energy, cfg.ccsd_e_tol, cfg.ccsd_t_tol)
@@ -552,11 +554,13 @@ def do_ccsd_spatial(
         dat.write_amplitudes(
             Path(workdir) / "amplitudes_out.npz", t1_out.cpu().numpy(), t2_out.cpu().numpy()
         )
+        trace.synced(2)
 
     t1_diag = 0.0
     if converged:
         # T1 diagnostic (ccsd.f90:369-376)
         t1_diag = (float(torch.sum(t1_out * t1_out)) / sys_.nel) ** 0.5
+        trace.synced()
         rep.write(f" T1 diagnostic: {t1_diag:8.5f}")
         if t1_diag > 0.02:
             rep.write(

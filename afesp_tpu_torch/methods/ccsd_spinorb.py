@@ -46,6 +46,7 @@ from pathlib import Path
 
 import torch
 
+from .. import trace
 from ..config import Config
 from ..device import F64, default_device
 from ..io import dat
@@ -567,6 +568,7 @@ def do_ccsd_spinorb(
     rep.cc_table_header()
 
     energy, r0_h, err = torch.stack([e0, r0, selfcheck_err]).tolist()
+    trace.synced()
     rep.cc_row("MP1", energy, energy, r0_h)
     if cfg.spinorb_selfcheck:
         # the reference compares against depsilon=1e-12 on exact Fortran
@@ -605,6 +607,7 @@ def do_ccsd_spinorb(
         dat.write_amplitudes(
             Path(workdir) / "amplitudes_out.npz", t1_out.cpu().numpy(), t2_out.cpu().numpy()
         )
+        trace.synced(2)
     return CCSDSpinorbResult(
         e_ccsd=energy,
         t1=t1_out,

@@ -15,7 +15,9 @@ trajectories match the reference to roundoff:
 The eigensolve and DIIS stay in host LAPACK/numpy as in the JAX host
 loop (at the reference's scale SCF is latency-bound); only the O(n^4)
 Fock build runs on the device, against the one device copy of the ERI
-that MP2 shares (`IntStore.eri_on_device`).
+that MP2 shares (`IntStore.eri_on_device`).  Each iteration's host work
+(the DIIS step of the last Fock build, then F', eigh, density and
+energy) is the span `rhf.host` (`trace.py`).
 
 The streaming tier (`afesp_tpu/methods/hf.py:143-413,477-549`), taken
 under `AFESP_FORCE_STREAM=1` at nbasis >= `_TPU_FOCK_NBASIS`, as in the
@@ -41,6 +43,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import Config
 from ..device import F64, default_device
 from ..io import dat
@@ -196,6 +199,7 @@ def purify_density(Fp: torch.Tensor, *, nocc: int, tol: float = 1e-14, maxiter: 
             Dc, t_lo = _pm_step(Dc)
             run.append((Dc, t_lo))
         going = (torch.stack([t for _, t in run]) > tol * m).tolist()
+        trace.synced()
         for (Dk, _), more in zip(run, going):
             D = Dk
             steps += 1
@@ -263,6 +267,7 @@ def _scf_prelude_device(H, S, X, consts, iu, tk, tl, *, nocc: int, nerr: int, ma
             Fn = torch.where(ok, torch.sum(c[:nerr, None] * Fh, dim=0).reshape(n, n), Fn)
         F, D_old, E_old = Fn, D, E
         it += 1
+        trace.synced()
         if bool(done):
             break
     return F_best[iu[0], iu[1]], it
@@ -302,6 +307,13 @@ class _DiisHost:
         return np.tensordot(c[:n], self.F[:n], axes=1)
 
 
+def _diis_step(diis: _DiisHost, F: np.ndarray, D: np.ndarray, S: np.ndarray) -> np.ndarray:
+    """The Fock matrix F built from density D after its DIIS step."""
+    err = F @ D @ S - S @ D @ F  # DIIS error (hf.f90:212-213)
+    extrap = diis.update(F, err)
+    return F if extrap is None else extrap
+
+
 def symmetric_orthogonaliser_np(S: np.ndarray) -> np.ndarray:
     """X = S^{-1/2} = U s^{-1/2} U^T (hf.f90:48-66, Szabo-Ostlund 3.167)."""
     s, U = np.linalg.eigh(S)
@@ -311,6 +323,7 @@ def symmetric_orthogonaliser_np(S: np.ndarray) -> np.ndarray:
 def _from_upper(fp: torch.Tensor, iu_h, n: int) -> np.ndarray:
     """The symmetric host matrix of a packed upper triangle."""
     fp = fp.to(F64).cpu().numpy()
+    trace.synced()
     F = np.empty((n, n))
     F[iu_h] = fp
     F.T[iu_h] = fp
@@ -386,14 +399,20 @@ def do_rhf(
     result = None
     t0 = time.perf_counter()
 
+    F_built = None  # the last Fock build, before its DIIS step
     for it in range(1, cfg.scf_maxiter + 1):
-        Fp = X.T @ F @ X
-        w, Cp = np.linalg.eigh(Fp)
-        C = (X @ Cp).T  # rows = MO index (hf.f90:102)
-        D = C[:nocc].T @ C[:nocc]
-        energy = float(np.sum(D * (H + F)))
-        energies.append(energy)
-        rms = float(np.sqrt(np.sum((D - D_old) ** 2)))
+        # the iteration's host work: the DIIS step of the Fock matrix built
+        # at the end of the previous one, then its eigenproblem and density
+        with trace.span("rhf.host"):
+            if F_built is not None:
+                F = _diis_step(diis, F_built, D, S)
+            Fp = X.T @ F @ X
+            w, Cp = np.linalg.eigh(Fp)
+            C = (X @ Cp).T  # rows = MO index (hf.f90:102)
+            D = C[:nocc].T @ C[:nocc]
+            energy = float(np.sum(D * (H + F)))
+            energies.append(energy)
+            rms = float(np.sqrt(np.sum((D - D_old) ** 2)))
         t1 = time.perf_counter()
         rep.scf_row(it, energy, energy - energy_old, rms, t1 - t0)
         t0 = t1
@@ -422,15 +441,13 @@ def do_rhf(
             # unless the prelude already converged the guess (JAX `:590-609`)
             early = rms > 1e-3 and not prelude_guess
             fp = _fock_build_stream(H_dev, D_dev, fock_consts, tk, tl, iu, packed_f32=early)
-            F = _from_upper(fp, iu_h, n)
+            F_built = _from_upper(fp, iu_h, n)
         else:
-            F = fock_build(H_dev, eri_dev, D_dev).cpu().numpy()
-        err = F @ D @ S - S @ D @ F  # DIIS error (hf.f90:212-213)
-        extrap = diis.update(F, err)
-        if extrap is not None:
-            F = extrap
+            F_built = fock_build(H_dev, eri_dev, D_dev).cpu().numpy()
+            trace.synced()
 
     if result is None:
+        F = _diis_step(diis, F_built, D, S)
         # Warn-and-continue, matching hf.f90:144-146 (does NOT abort)
         rep.write(" Convergence not reached, please increase maxiter.")
         result = HFResult(

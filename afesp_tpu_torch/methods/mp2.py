@@ -29,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+from .. import trace
 from ..config import Config
 from ..device import F64, default_device
 from ..io import dat
@@ -132,6 +133,7 @@ def do_mp2_spatial(
         rep.write(" Calculating MP2 energy...")
         lv = torch.as_tensor(hf.levels, dtype=F64, device=dev)
         e_mp2 = float(mp2_energy_from_oovv(slices.v_oovv, lv[:nocc], lv[nocc:]))
+        trace.synced()
         rep.write(f" MP2 correlation energy (Hartree): {e_mp2:15.8f}")
         if cfg.write_fcidump:
             rep.write(" FCIDUMP skipped: no dense MO tensor on the streaming tier.")
@@ -147,11 +149,13 @@ def do_mp2_spatial(
     rep.write(" Calculating MP2 energy...")
     levels = torch.as_tensor(hf.levels, dtype=F64, device=dev)
     e_mp2 = float(mp2_energy(eri_mo, levels, nocc))
+    trace.synced()
     rep.write(f" MP2 correlation energy (Hartree): {e_mp2:15.8f}")
 
     if cfg.write_fcidump:
         rep.write(" Writing FCIDUMP file...")
         write_fcidump(Path(workdir) / "FCIDUMP", eri_mo.cpu().numpy())
+        trace.synced()
         rep.write(" Done writing FCIDUMP file!")
 
     rep.stage_time("Time taken for restricted MP2:", time.perf_counter() - t_start)

@@ -63,6 +63,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import Config
 from ..io import dat
 from ..io.report import Reporter
@@ -491,6 +492,7 @@ def do_ccsd_t_spatial(
     on = dict(e_T=True, e_TT=doing_T, D_T=doing_R or doing_CR,
               D_TT=(doing_R or doing_CR) and doing_T, e_CR=doing_CR, e_CRT=doing_CR and doing_T)
     vals = torch.stack([x for x in totals]).tolist()
+    trace.synced()
     sums = {k: (x if on[k] else 0.0) for k, x in zip(_SUM_KEYS, vals)}
     if cfg.ccsd_t_spatial_bug_compat and doing_T and not (doing_R or doing_CR):
         # reference quirk (ccsd.f90:2211-2215): z3_bar is only formed for
@@ -508,6 +510,7 @@ def do_ccsd_t_spatial(
         asym_t2 = 2.0 * t2 - t2.permute(1, 0, 2, 3)
         c_oovv = t2 + es("ia,jb->ijab", t1, t1)
         const = float(1.0 + 2.0 * torch.sum(t1**2) + torch.sum(asym_t2 * c_oovv))
+        trace.synced()
         D_T += const
         if doing_T:
             D_TT += const

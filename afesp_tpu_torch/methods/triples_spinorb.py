@@ -44,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import Config
 from ..io import dat
 from ..io.report import Reporter
@@ -213,6 +214,7 @@ def do_ccsd_t_spinorb(
         if len(ii):
             idx = (torch.as_tensor(x, dtype=torch.long, device=dev) for x in (ii, jj, kk))
             e_t = float(_triples_total_strict(*args, *idx, clen=clen, precision=precision))
+            trace.synced()
     e_ccsd_t = e_t + cc.e_ccsd
     rep.write(
         f" Unrestricted CCSD(T) correlation energy (Hartree): {e_ccsd_t:15.9f}"

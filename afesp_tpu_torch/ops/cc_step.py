@@ -11,9 +11,19 @@ operands (the hybrid iterations' digitized ERI slices) are built once
 per solve and handed to every iteration.  The JAX package compiles the
 whole solve into one `lax.while_loop` (and pins the consts with an
 optimization barrier, `_pin`, which eager torch needs no counterpart
-of); the port runs it as a Python loop on the device with ONE readback
+of); the port runs it as a Python loop on the device with one readback
 per iteration (the energy and the squared T2 change, read together),
 which is what the host needs for the convergence test and the report.
+That readback is not the iteration's only host-device synchronisation:
+on an H100 an iteration makes nerr + 3 of them (11 at nerr = 8, 9 at 6,
+counted by the recorder's `syncs`).  Each Python scalar written into a
+device tensor is a host scalar copied over with a sync: `gauss_solve`'s
+`factors[k] = 0.0`, once a pivot step (nerr + 1), and `cc_step`'s
+`rhs[nerr] = -1.0`, once.  The first of them blocks the host until the
+device has run the iteration's launches.  Each pass of the loop is the
+span `ccsd.iter` (`trace.py`), split into `ccsd.issue` (up to `cc_step`
+returning: the launches, and with them those syncs' waits) and
+`ccsd.readback` (the readback).
 
 The DIIS system is solved at fixed size (n_errmat+1) with inactive slots
 masked to identity rows, algebraically identical to the reference's
@@ -29,6 +39,8 @@ import time
 from typing import Callable, NamedTuple
 
 import torch
+
+from .. import trace
 
 
 @dataclasses.dataclass
@@ -176,11 +188,15 @@ def make_cc_solver(iteration_fn: Callable, energy_fn: Callable,
         energies: list[float] = []
         e_old = e0
         for k in range(1, maxiter + 1):
-            state, er = cc_step(state, iteration, energy, nerr)
-            e, rms2 = er.tolist()
-            now = time.perf_counter()
-            if on_iteration is not None:
-                on_iteration(k, e, e - e_old, rms2, now - t_it)
+            with trace.span("ccsd.iter"):
+                with trace.span("ccsd.issue"):
+                    state, er = cc_step(state, iteration, energy, nerr)
+                with trace.span("ccsd.readback"):
+                    e, rms2 = er.tolist()
+                    trace.synced()
+                now = time.perf_counter()
+                if on_iteration is not None:
+                    on_iteration(k, e, e - e_old, rms2, now - t_it)
             t_it = now
             energies.append(e)
             done = rms2**0.5 < t_tol and abs(e - e_old) < e_tol

@@ -27,14 +27,22 @@ and `prechunk_B` digitize once (1 byte per element and limb where the
 JAX package holds 2-byte bf16 chunks); the f32 route chunks at use.
 `prechunk_B_chunkscaled` keeps its per-chunk layout (nc, kc, N), because
 its scales are per chunk.
+
+Each outermost call of an entry point (`exact_gemm`, `exact_einsum`,
+`gemm_B_pre_streamed`) is the span `digit_gemm` (`trace.py`);
+`digit_pair_gemm.launches` counts the digit pairs and
+`_int_mm.launches` the int8 GEMMs they take after the K and tile
+splits.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from .. import trace
 from ..device import F64, current
 
 F32 = torch.float32
@@ -156,7 +164,8 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     multiple of 16), b goes in column-major, the "TN" layout of
     cuBLASLt's int8 kernels, and an output wider or taller than
     _INT_MM_TILE is computed block by block.  The same code runs on
-    every device, so the CPU exercises it."""
+    every device, so the CPU exercises it.  Adds one to
+    `_int_mm.launches` per `torch._int_mm` call."""
     M, K = a.shape
     N = b.shape[1]
     Kp = -(-K // 16) * 16
@@ -169,6 +178,7 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             bb = b[:, n0:n0 + _INT_MM_TILE]
             Np = -(-bb.shape[1] // 8) * 8
             blk = torch._int_mm(ap, _pad_to(bb.t(), Np, Kp).t())
+            _int_mm.launches += 1
             out[m0:m0 + ab.shape[0], n0:n0 + bb.shape[1]] = blk[:ab.shape[0], :bb.shape[1]]
     return out
 
@@ -196,7 +206,21 @@ def digit_pair_gemm(a: torch.Tensor, b: torch.Tensor, route: str = "int8") -> to
     return torch.bmm(af, bf).to(F64).sum(0)  # exact per chunk, exact f64 sum
 
 
+_int_mm.launches = 0
 digit_pair_gemm.launches = 0
+trace.register("_int_mm.launches", _int_mm)
+trace.register("digit_pair_gemm.launches", digit_pair_gemm)
+
+
+def _digit_gemm_span(entry):
+    """The span `digit_gemm` around each call of a digit-GEMM entry point
+    (one made inside another is the outer one's)."""
+
+    @functools.wraps(entry)
+    def spanned(*args, **kwargs):
+        with trace.span("digit_gemm"):
+            return entry(*args, **kwargs)
+    return spanned
 
 
 def prechunk_A(A: torch.Tensor, L: int = 4):
@@ -265,6 +289,7 @@ def reconstruct_f32_from_B_pre(B_pre, K: int, N: int) -> torch.Tensor:
     return out.reshape(K, N)
 
 
+@_digit_gemm_span
 def gemm_B_pre_streamed(A: torch.Tensor, B_pre, maxdeg: int = 6) -> torch.Tensor:
     """(M,K) @ (K,N) against a prechunk_B_chunkscaled operand, one K chunk
     at a time: the transient is one (M,N) group of pair products and the
@@ -286,6 +311,7 @@ def gemm_B_pre_streamed(A: torch.Tensor, B_pre, maxdeg: int = 6) -> torch.Tensor
     return acc * (4.0 * sA)
 
 
+@_digit_gemm_span
 def exact_einsum(sub: str, A, B, L: int = 4, maxdeg: int = 5, A_pre=None,
                  B_pre=None, A_shape=None, B_shape=None):
     """Two-operand einsum via exact_gemm (plain contractions only, as
@@ -315,6 +341,7 @@ def exact_einsum(sub: str, A, B, L: int = 4, maxdeg: int = 5, A_pre=None,
     return C.permute([(fa + fb).index(c) for c in out])
 
 
+@_digit_gemm_span
 def exact_gemm(A=None, B=None, *, A_dig=None, B_dig=None, A_pre=None,
                B_pre=None, L: int = 7, maxdeg: int = 8,
                digit_dtype: torch.dtype = F32, route: str = "int8") -> torch.Tensor:

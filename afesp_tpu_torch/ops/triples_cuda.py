@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from .. import trace
 from ..device import current
 from ._build import load
 
@@ -274,6 +275,7 @@ def triples_fused(t1, t2, vovv, ovoo, oovv, e_o, e_v, ii, jj, kk, split=None) ->
     # the bounds check reads the indices back: the card builds the
     # operands above meanwhile, and nothing has gathered with them yet
     lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+    trace.synced()
     if lo < 0 or hi >= o:
         raise ValueError(f"triples_fused: triple indices outside [0, {o})")
     eo_sum = _triple_sums(e_o, *idx.long()).contiguous()

@@ -45,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ._build import load
 from .triples_cuda import F64, _check, _ptr, _raise_on, _stream, _VP, on_its_device
 
@@ -239,6 +240,7 @@ def _check_sorted_triples(name, dev, t1, t2, v_vvov, v_oovo, v_oovv, e_o, e_v, I
     if n:
         # both ends in one read-back: on a card each read-back synchronises
         lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+        trace.synced()
         if lo < 0 or hi >= o:
             raise ValueError(f"{name}: triple indices outside [0, {o})")
     return idx

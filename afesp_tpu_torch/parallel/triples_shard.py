@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .mesh import Mesh
 
 
@@ -89,6 +90,7 @@ def triples_total_sharded(mesh: Mesh, t1, t2, vovv, ovoo, oovv, e_o, e_v, *, noc
         idx = (torch.as_tensor(x[share], dtype=torch.long, device=dev) for x in (ii, jj, kk))
         part = _triples_total_strict(*_to(dev, *args), *idx, clen=clen, precision=precision)
         acc = _add(acc, part.to(first))
+    trace.synced()
     return float(acc)
 
 
@@ -167,4 +169,5 @@ def triples_energy_sharded(mesh: Mesh, nocc: int, t1, t2, vovv, ovoo, oovv, e_o,
             e = triples_chunk_energies(i, j, k, *on_dev)
             partials.append(torch.dot(torch.as_tensor(w[c], dtype=e.dtype, device=dev), e))
         acc = _add(acc, torch.stack(partials).sum().to(mesh.devices[0]))
+    trace.synced()
     return float(acc)

@@ -773,3 +773,31 @@ def test_spatial_hybrid_tier_on_the_card_matches_the_cpu(o, v):
     for g, w_ in zip(got, want):
         assert g.dtype == torch.float32
         assert float((g.cpu() - w_).abs().max()) <= 1e-6 * float(w_.abs().max())
+
+
+def test_a_readback_in_a_span_counts_one_sync_on_the_card():
+    """With recording on, torch's sync debug mode counts each host-device
+    synchronisation once in the open span (the explicit `synced()` mark
+    beside a readback adds nothing there); `disable()` puts the previous
+    mode back."""
+    from afesp_tpu_torch import trace
+
+    dev = _card()
+    x = torch.arange(8.0, device=dev)
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.get_sync_debug_mode()
+    trace.enable()
+    try:
+        assert torch.cuda.get_sync_debug_mode() == 1
+        with trace.span("calc"):
+            with trace.span("readback"):
+                assert x.sum().item() == 28.0
+                trace.synced()
+            with trace.span("launches"):
+                y = x * 2.0
+    finally:
+        trace.disable()
+    assert torch.cuda.get_sync_debug_mode() == before
+    calc, readback, launches = trace.records()[-1]
+    assert readback.counts["syncs"] == 1 and launches.counts["syncs"] == 0
+    assert calc.counts["syncs"] == 1 and float(y.sum()) == 56.0
