@@ -23,7 +23,11 @@ device tensor is a host scalar copied over with a sync: `gauss_solve`'s
 device has run the iteration's launches.  Each pass of the loop is the
 span `ccsd.iter` (`trace.py`), split into `ccsd.issue` (up to `cc_step`
 returning: the launches, and with them those syncs' waits) and
-`ccsd.readback` (the readback).
+`ccsd.readback` (the readback).  The loop runs inside a digit-graph
+scope (`exact_gemm.graph_scope`, closed on every exit): a digit-GEMM
+call on the card that the solve has made before is captured once as a
+CUDA graph and from then on replayed, the same kernels on the same
+bytes, so the host no longer issues its few hundred launches one by one.
 
 The DIIS system is solved at fixed size (n_errmat+1) with inactive slots
 masked to identity rows, algebraically identical to the reference's
@@ -41,6 +45,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import trace
+from . import exact_gemm
 
 
 @dataclasses.dataclass
@@ -187,23 +192,24 @@ def make_cc_solver(iteration_fn: Callable, energy_fn: Callable,
         energy = lambda t1, t2, t2_old: energy_fn(t1, t2, t2_old, oovv)
         energies: list[float] = []
         e_old = e0
-        for k in range(1, maxiter + 1):
-            with trace.span("ccsd.iter"):
-                with trace.span("ccsd.issue"):
-                    state, er = cc_step(state, iteration, energy, nerr)
-                with trace.span("ccsd.readback"):
-                    e, rms2 = er.tolist()
-                    trace.synced()
-                now = time.perf_counter()
-                if on_iteration is not None:
-                    on_iteration(k, e, e - e_old, rms2, now - t_it)
-            t_it = now
-            energies.append(e)
-            done = rms2**0.5 < t_tol and abs(e - e_old) < e_tol
-            e_old = e
-            if done:
-                return state, energies, True
-        return state, energies, False
+        with exact_gemm.graph_scope():
+            for k in range(1, maxiter + 1):
+                with trace.span("ccsd.iter"):
+                    with trace.span("ccsd.issue"):
+                        state, er = cc_step(state, iteration, energy, nerr)
+                    with trace.span("ccsd.readback"):
+                        e, rms2 = er.tolist()
+                        trace.synced()
+                    now = time.perf_counter()
+                    if on_iteration is not None:
+                        on_iteration(k, e, e - e_old, rms2, now - t_it)
+                t_it = now
+                energies.append(e)
+                done = rms2**0.5 < t_tol and abs(e - e_old) < e_tol
+                e_old = e
+                if done:
+                    return state, energies, True
+            return state, energies, False
 
     solve.parts = SolverParts(iteration_fn, energy_fn, precompute)
     return solve

@@ -33,12 +33,41 @@ Each outermost call of an entry point (`exact_gemm`, `exact_einsum`,
 `digit_pair_gemm.launches` counts the digit pairs and
 `_int_mm.launches` the int8 GEMMs they take after the K and tile
 splits.
+
+A CC solve repeats the same contractions every iteration, each a few
+hundred small launches that the host issues one by one.  Inside a graph
+scope (`graph_scope()`, which `cc_step.make_cc_solver`'s solve opens
+around its loop) an outermost entry call is replayed from a CUDA graph
+when all three hold: a scope is open; every tensor it is given (operand,
+prechunked or pre-digitized) lies on the current card; and its key has
+been met before in the scope.  The key is the entry, its non-tensor
+arguments, the identity of the tensors of each A_pre/B_pre/A_dig/B_dig
+and the shape and dtype of each tensor operand (`_call_key`).  The first
+meeting runs eagerly; the second captures the entry's unchanged body on
+a side stream, reading static copies of the varying operands, into a
+pool the scope's graphs share, and replays it; later meetings copy
+their operands in, replay, and hand back a clone of the static output.
+A replay runs the same kernels on the same bytes, so its result is the
+eager call's bit for bit.  Closing the scope drops every graph, buffer
+and pool, and cuBLAS's per-stream workspaces, so the capture stream's
+holds no memory past the solve.  Outside a scope, on the CPU and where
+an operand lies on another card (the mesh's parts), calls run eagerly as
+they always did.
+
+Counters: `graph_scope.calls` (`digit_graph.calls`, outermost calls in a
+scope on a card), `.captures`, `.replays` (calls served by replaying an
+existing graph); a replay adds what its capture added to
+`_int_mm.launches` and `digit_pair_gemm.launches`, which so count what
+the device runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import inspect
 import math
+import weakref
 
 import torch
 
@@ -212,15 +241,194 @@ trace.register("_int_mm.launches", _int_mm)
 trace.register("digit_pair_gemm.launches", digit_pair_gemm)
 
 
-def _digit_gemm_span(entry):
-    """The span `digit_gemm` around each call of a digit-GEMM entry point
-    (one made inside another is the outer one's)."""
+_scope: _GraphScope | None = None  # the open graph scope
+
+
+@contextlib.contextmanager
+def graph_scope():
+    """The scope inside which repeated entry calls replay CUDA graphs
+    (module docstring).  A scope opened inside an open one is the outer
+    one's.  Closing drops the graphs, their buffers and their pool, on
+    every exit."""
+    global _scope
+    if _scope is not None:
+        yield
+        return
+    _scope = scope = _GraphScope()
+    try:
+        yield
+    finally:
+        _scope = None
+        scope.close()
+
+
+graph_scope.calls = graph_scope.captures = graph_scope.replays = 0
+trace.register("digit_graph.calls", graph_scope, "calls")
+trace.register("digit_graph.captures", graph_scope, "captures")
+trace.register("digit_graph.replays", graph_scope, "replays")
+
+
+def _tensors(x) -> list:
+    """The tensors in x, a tensor or nested tuples and lists of them."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+def _card_of(args, kwargs) -> int | None:
+    """The current card's index if every tensor of the call lies on it."""
+    ts = _tensors(args) + _tensors(list(kwargs.values()))
+    if not ts or not all(t.is_cuda for t in ts):
+        return None
+    card = torch.cuda.current_device()
+    return card if all(t.device.index == card for t in ts) else None
+
+
+def _call_key(entry: str, arguments: dict):
+    """(key, varying, held) of an entry call's bound arguments: the key
+    names the entry, each non-tensor argument, the identity of the
+    tensors of each A_pre/B_pre/A_dig/B_dig (`held`) and the shape and
+    dtype of each tensor operand; `varying` names the operands the
+    body reads (A and B, unless a prechunked or pre-digitized form of
+    the same side stands in for it and the tensor gives its shape only)."""
+    parts, varying, held = [entry], [], []
+    for name, val in arguments.items():
+        if name in ("A_pre", "B_pre", "A_dig", "B_dig") and val is not None:
+            ts = _tensors(val)
+            held += ts
+            parts.append((name, tuple(map(id, ts))))
+        elif isinstance(val, torch.Tensor):
+            parts.append((name, tuple(val.shape), val.dtype))
+            if arguments.get(name + "_pre") is None and arguments.get(name + "_dig") is None:
+                varying.append(name)
+        else:
+            parts.append((name, val))
+    return tuple(parts), varying, held
+
+
+def _side_stream() -> torch.cuda.Stream:
+    """A stream to capture on.  One int8 and one f32 GEMM run on it first,
+    outside any capture, so that cuBLAS holds its handle and workspace
+    for the stream before a capture needs them (a workspace made inside
+    a capture would live in the graphs' pool for the process's life)."""
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        a = torch.zeros((32, 16), dtype=torch.int8, device=side.device)
+        torch._int_mm(a, a[:8].t())
+        f = torch.zeros((8, 8), dtype=F32, device=side.device)
+        torch.mm(f, f)
+    return side
+
+
+def _launches() -> tuple[int, int]:
+    return _int_mm.launches, digit_pair_gemm.launches
+
+
+class _Graph:
+    """One entry call captured: its static operand copies, its output,
+    the launch counts its capture added, and the prechunked tensors it
+    reads (held, so that their memory and ids stay its own)."""
+
+    def __init__(self, fn, bound: inspect.BoundArguments, varying: list, held: list, pool,
+                 side: torch.cuda.Stream):
+        self.held = held
+        self.inputs = {n: torch.empty_like(bound.arguments[n],
+                                           memory_format=torch.contiguous_format)
+                       for n in varying}
+        static = inspect.BoundArguments(bound.signature, bound.arguments | self.inputs)
+        before = _launches()
+        self.graph = torch.cuda.CUDAGraph()
+        here = torch.cuda.current_stream()
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            # thread_local: the compile-ahead thread (warmup.py) may query
+            # the card meanwhile; this thread alone is held to capture's rules
+            self.graph.capture_begin(pool, capture_error_mode="thread_local")
+            try:
+                self.output = fn(*static.args, **static.kwargs)
+            finally:
+                self.graph.capture_end()
+        here.wait_stream(side)
+        self.counts = [a - b for a, b in zip(_launches(), before)]
+
+    def replay(self, arguments: dict) -> torch.Tensor:
+        for name, static in self.inputs.items():
+            static.copy_(arguments[name])
+        self.graph.replay()
+        return self.output.clone()
+
+
+class _GraphScope:
+    """An open scope's graphs by key, and the keys met once, each with
+    weak references to its held tensors (a dead one means its id may
+    belong to another tensor now: the key counts as not met); the
+    graphs' shared memory pool and capture stream, made at the first
+    capture."""
+
+    def __init__(self):
+        self.graphs: dict = {}
+        self.met: dict = {}
+        self.pool = self.side = None
+        self.depth = 0  # entry-point calls open, the outermost included
+
+    def close(self) -> None:
+        """Drop the graphs and, where any was captured, cuBLAS's
+        workspaces, the capture stream's among them (the next cuBLAS call
+        on a stream makes its own anew), after the capture stream has
+        been ordered behind the current one's work, the replays'."""
+        self.graphs.clear()
+        self.met.clear()
+        if self.side is not None:
+            self.side.wait_stream(torch.cuda.current_stream(self.side.device))
+            torch._C._cuda_clearCublasWorkspaces()
+        self.pool = self.side = None
+
+    def call(self, fn, bound: inspect.BoundArguments, card: int):
+        bound.apply_defaults()
+        key, varying, held = _call_key(fn.__name__, bound.arguments)
+        key = (card, key)
+        graph_scope.calls += 1
+        g = self.graphs.get(key)
+        if g is not None:
+            graph_scope.replays += 1
+            _int_mm.launches += g.counts[0]
+            digit_pair_gemm.launches += g.counts[1]
+            return g.replay(bound.arguments)
+        refs = self.met.pop(key, None)
+        if refs is None or any(r() is None for r in refs):
+            self.met[key] = [weakref.ref(t) for t in held]
+            return fn(*bound.args, **bound.kwargs)
+        if self.pool is None:
+            self.pool, self.side = torch.cuda.graph_pool_handle(), _side_stream()
+        g = self.graphs[key] = _Graph(fn, bound, varying, held, self.pool, self.side)
+        graph_scope.captures += 1
+        return g.replay(bound.arguments)
+
+
+def _entry_point(entry):
+    """A digit-GEMM entry point: the span `digit_gemm` around each call
+    (one made inside another is the outer one's), and an outermost call
+    inside a graph scope served by the scope (module docstring)."""
+    signature = inspect.signature(entry)
 
     @functools.wraps(entry)
-    def spanned(*args, **kwargs):
+    def call(*args, **kwargs):
         with trace.span("digit_gemm"):
-            return entry(*args, **kwargs)
-    return spanned
+            scope = _scope
+            if scope is None:
+                return entry(*args, **kwargs)
+            outermost = scope.depth == 0
+            scope.depth += 1
+            try:
+                card = _card_of(args, kwargs) if outermost else None
+                if card is None:
+                    return entry(*args, **kwargs)
+                return scope.call(entry, signature.bind(*args, **kwargs), card)
+            finally:
+                scope.depth -= 1
+    return call
 
 
 def prechunk_A(A: torch.Tensor, L: int = 4):
@@ -289,7 +497,7 @@ def reconstruct_f32_from_B_pre(B_pre, K: int, N: int) -> torch.Tensor:
     return out.reshape(K, N)
 
 
-@_digit_gemm_span
+@_entry_point
 def gemm_B_pre_streamed(A: torch.Tensor, B_pre, maxdeg: int = 6) -> torch.Tensor:
     """(M,K) @ (K,N) against a prechunk_B_chunkscaled operand, one K chunk
     at a time: the transient is one (M,N) group of pair products and the
@@ -311,7 +519,7 @@ def gemm_B_pre_streamed(A: torch.Tensor, B_pre, maxdeg: int = 6) -> torch.Tensor
     return acc * (4.0 * sA)
 
 
-@_digit_gemm_span
+@_entry_point
 def exact_einsum(sub: str, A, B, L: int = 4, maxdeg: int = 5, A_pre=None,
                  B_pre=None, A_shape=None, B_shape=None):
     """Two-operand einsum via exact_gemm (plain contractions only, as
@@ -341,7 +549,7 @@ def exact_einsum(sub: str, A, B, L: int = 4, maxdeg: int = 5, A_pre=None,
     return C.permute([(fa + fb).index(c) for c in out])
 
 
-@_digit_gemm_span
+@_entry_point
 def exact_gemm(A=None, B=None, *, A_dig=None, B_dig=None, A_pre=None,
                B_pre=None, L: int = 7, maxdeg: int = 8,
                digit_dtype: torch.dtype = F32, route: str = "int8") -> torch.Tensor:

@@ -37,7 +37,11 @@ Hartree-Fock", "MP2", "CCSD", "CCSD(T)" (driver.py); `ccsd.iter`,
 `ccsd.issue`, `ccsd.readback` (ops/cc_step.py); `digit_gemm`
 (ops/exact_gemm.py); `rhf.host` (methods/hf.py); `eri.upload`
 (io/dat.py).  The counters: `syncs`, `_int_mm.launches`,
-`digit_pair_gemm.launches`.
+`digit_pair_gemm.launches` (ops/exact_gemm.py: what the device runs,
+a graph replay adding what its capture issued), `digit_graph.calls`,
+`digit_graph.captures`, `digit_graph.replays` (ops/exact_gemm.py: the
+outermost digit-GEMM calls on a card inside a graph scope, the graphs
+captured, the calls served by replaying one).
 """
 
 from __future__ import annotations

@@ -398,3 +398,170 @@ def test_split_einsum_holds_jax_bound(spec):
     plain = tsplit.split_matmul(Am, Bm, 4)
     pre = tsplit.split_matmul(A_pre=tsplit._chunk_A(Am, 4), B_pre=tsplit._chunk_B(Bm, 4))
     assert torch.equal(plain, pre)
+
+
+def _key(fn, *args, **kwargs):
+    import inspect
+
+    bound = inspect.signature(fn).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return T._call_key(fn.__name__, bound.arguments)
+
+
+def test_digit_graph_key_names_spec_shapes_and_prechunked_tensors():
+    """The graph key of an entry call: the same for the same spec,
+    arguments, operand shapes and prechunked tensors (whatever holds
+    them); another for another spec, shape, dtype, non-tensor argument
+    or prechunked tensor of equal value.  The varying operands are those
+    the body reads."""
+    rng = np.random.default_rng(3)
+    A, B = _t(rng.standard_normal((4, 5, 6))), _t(rng.standard_normal((6, 3)))
+    spec = "ijk,kl->ijl"
+    pre = T.prechunk_op(spec, "B", B)
+    key, varying, held = _key(T.exact_einsum, spec, A, B, B_pre=pre)
+    assert varying == ["A"] and [id(t) for t in held] == [id(t) for t in T._tensors(pre)]
+    assert _key(T.exact_einsum, spec, A.clone(), B.clone(), B_pre=(pre[0], pre[1]))[0] == key
+    assert _key(T.exact_einsum, spec, A, B, B_pre=pre, maxdeg=5)[0] == key  # the default
+    for other in (
+        _key(T.exact_einsum, "ijk,kl->jil", A, B, B_pre=pre),
+        _key(T.exact_einsum, spec, A[:3], B, B_pre=pre),
+        _key(T.exact_einsum, spec, A.float(), B, B_pre=pre),
+        _key(T.exact_einsum, spec, A, B, B_pre=pre, maxdeg=6),
+        _key(T.exact_einsum, spec, A, B, B_pre=T.prechunk_op(spec, "B", B)),
+        _key(T.exact_einsum, spec, A, B),
+    ):
+        assert other[0] != key
+    assert _key(T.exact_einsum, spec, A, B)[1] == ["A", "B"]
+    Am = A.reshape(20, 6)
+    assert _key(T.exact_gemm, Am, B, L=5)[1] == ["A", "B"]
+    assert _key(T.exact_gemm, Am, B_dig=T.digitize_B(B, 5))[1] == ["A"]
+    assert _key(T.exact_gemm, A_pre=T.prechunk_A(Am), B=B)[1] == ["B"]
+    assert _key(T.exact_gemm, Am, B)[0] != _key(T.exact_einsum, spec, A, B)[0]
+    limbs = T.prechunk_B_chunkscaled(_t(rng.standard_normal((16, 3))))
+    assert _key(T.gemm_B_pre_streamed, _t(rng.standard_normal((2, 16))), limbs)[1] == ["A"]
+
+
+def _digit_graph_counts():
+    g = T.graph_scope
+    return [g.calls, g.captures, g.replays, T._int_mm.launches, T.digit_pair_gemm.launches]
+
+
+def _entry_calls():
+    """One call of each entry point on the CPU, with a prechunked, a
+    pre-digitized and a chunk-scaled operand."""
+    rng = np.random.default_rng(11)
+    A, B = _t(rng.standard_normal((3, 4, 16))), _t(rng.standard_normal((16, 5)))
+    pre, dig = T.prechunk_op("ijk,kl->ijl", "B", B), T.digitize_B(B, 6)
+    limbs = T.prechunk_B_chunkscaled(B)
+    Am = A.reshape(12, 16)
+    return [
+        lambda: T.exact_einsum("ijk,kl->ijl", A, B, B_pre=pre, maxdeg=6),
+        lambda: T.exact_einsum("ijk,kl->lji", A, B, L=5),
+        lambda: T.exact_gemm(Am, B_dig=dig, L=6, maxdeg=7),
+        lambda: T.exact_gemm(Am, B, digit_dtype=torch.int8),
+        lambda: T.gemm_B_pre_streamed(Am, limbs, maxdeg=6),
+    ]
+
+
+def test_digit_graph_scope_is_a_no_op_off_the_card():
+    """On the CPU a graph scope changes nothing: every entry point gives
+    the same bits and launches as without it, no digit_graph counter
+    moves, and nothing is captured."""
+    calls = _entry_calls()
+    before = _digit_graph_counts()
+    want = [f() for f in calls]
+    eager = [a - b for a, b in zip(_digit_graph_counts(), before)]
+    before = _digit_graph_counts()
+    with T.graph_scope():
+        got = [[f() for f in calls] for _ in range(3)]
+        assert T._scope.graphs == {} and T._scope.met == {}
+    counts = [a - b for a, b in zip(_digit_graph_counts(), before)]
+    assert counts == [0, 0, 0] + [3 * n for n in eager[3:]] and eager[3] > 0
+    for g in got:
+        assert all(torch.equal(x, w) and x.stride() == w.stride() for x, w in zip(g, want))
+
+
+def test_digit_graph_scope_closes_on_an_exception():
+    """A scope closes on every exit, an exception's included, and a CC
+    solve's loop runs inside one; a scope opened inside an open one is
+    the outer one's."""
+    from afesp_tpu_torch.ops import cc_step
+
+    with pytest.raises(KeyError):
+        with T.graph_scope():
+            outer = T._scope
+            with T.graph_scope():
+                assert T._scope is outer
+            assert T._scope is outer
+            raise KeyError("x")
+    assert T._scope is None
+
+    seen = []
+
+    def iteration_fn(t1, t2, v, D_ia, D_ijab, consts):
+        seen.append(T._scope)
+        raise RuntimeError("iteration failed")
+
+    solve = cc_step.make_cc_solver(iteration_fn, lambda *a: None)
+    t = torch.zeros((2, 3), dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="iteration failed"):
+        solve(cc_step.init_cc_state(t, t, 3), None, None, None, None, 0.0, 1e-6, 1e-6,
+              nerr=3, maxiter=4)
+    assert len(seen) == 1 and seen[0] is not None and T._scope is None
+
+
+class _ReplayedGraph:
+    """A stand-in for a captured graph on the CPU: its "capture" runs the
+    body once (the launch counters rise once, as under a real capture),
+    its replay runs the body again with the counters put back."""
+
+    def __init__(self, fn, bound, varying, held, pool, side):
+        self.fn, self.signature, self.held = fn, bound.signature, held
+        before = T._launches()
+        fn(*bound.args, **bound.kwargs)
+        self.counts = [a - b for a, b in zip(T._launches(), before)]
+
+    def replay(self, arguments):
+        import inspect
+
+        counts = T._launches()
+        b = inspect.BoundArguments(self.signature, arguments)
+        out = self.fn(*b.args, **b.kwargs)
+        T._int_mm.launches, T.digit_pair_gemm.launches = counts
+        return out
+
+
+def test_digit_graph_scope_meets_captures_and_replays(monkeypatch):
+    """The scope's bookkeeping, with the card and its graphs stood in
+    for: each outermost call's first meeting runs eagerly, the second
+    captures and replays, later ones replay; calls made inside another
+    entry point are not met; the launch counters rise as the eager
+    calls' would; a key whose prechunked tensor has died is met anew."""
+    monkeypatch.setattr(T, "_card_of", lambda args, kwargs: 0)
+    monkeypatch.setattr(T, "_Graph", _ReplayedGraph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(T, "_side_stream", lambda: None)
+    calls = _entry_calls()
+    before = _digit_graph_counts()
+    want = [f() for f in calls]
+    eager = [a - b for a, b in zip(_digit_graph_counts(), before)]
+    before = _digit_graph_counts()
+    with T.graph_scope():
+        got = [[f() for f in calls] for _ in range(4)]
+        scope = T._scope
+        assert len(scope.graphs) == len(calls) and scope.met == {} and scope.pool == "pool"
+    counts = [a - b for a, b in zip(_digit_graph_counts(), before)]
+    n = len(calls)
+    assert counts == [4 * n, n, 2 * n] + [4 * k for k in eager[3:]]
+    assert scope.graphs == {} and scope.pool is None
+    for g in got:
+        assert all(torch.equal(x, w) for x, w in zip(g, want))
+
+    rng = np.random.default_rng(5)
+    A, B = _t(rng.standard_normal((6, 16))), _t(rng.standard_normal((16, 5)))
+    before = _digit_graph_counts()
+    with T.graph_scope():
+        for _ in range(2):  # a new prechunked B each call: never met twice
+            T.exact_gemm(A, B_pre=T.prechunk_B(B))
+        assert T._scope.graphs == {}
+    assert [a - b for a, b in zip(_digit_graph_counts(), before)][:3] == [2, 0, 0]

@@ -801,3 +801,149 @@ def test_a_readback_in_a_span_counts_one_sync_on_the_card():
     calc, readback, launches = trace.records()[-1]
     assert readback.counts["syncs"] == 1 and launches.counts["syncs"] == 0
     assert calc.counts["syncs"] == 1 and float(y.sum()) == 56.0
+
+
+def _digit_graph_counts() -> list:
+    """The digit-graph and launch counters, as the recorder reads them."""
+    from afesp_tpu_torch import trace
+
+    now = trace._snapshot()
+    return [now[k] for k in ("digit_graph.calls", "digit_graph.captures",
+                             "digit_graph.replays", "_int_mm.launches",
+                             "digit_pair_gemm.launches")]
+
+
+def _digit_graph_cases(dev):
+    """Digit-GEMM calls at the water dimer's sizes (o=10, v=106), one a
+    route of the hybrid iteration: `ce` (A-side prechunked vvvv), `cb`
+    (B-side prechunked vvov: a 112360-wide output, four _INT_MM_TILE
+    blocks), `xe` (both operands digitized in the call), the stream
+    tier's chunk-scaled limbs through exact_einsum and
+    gemm_B_pre_streamed, and a pre-digitized exact_gemm."""
+    from afesp_tpu_torch.ops import exact_gemm as EG
+
+    o, v = 10, 106
+    g = torch.Generator(device=dev).manual_seed(19)
+    r = lambda *s: torch.randn(s, dtype=F64, device=dev, generator=g)
+    vvvv, vvov, t1, t2, ovov = r(v, v, v, v), r(v, v, o, v), r(o, v), r(o, o, v, v), r(o, v, o, v)
+    ce = EG.prechunk_op("efab,ijef->ijab", "A", vvvv, L=4)
+    cb = EG.prechunk_op("ie,baje->ijab", "B", vvov, L=4)
+    limbs = EG.prechunk_B_chunkscaled(vvvv.reshape(v * v, v * v), L=5)
+    B_dig = EG.digitize_B(ovov.reshape(o * v, o * v), 6)
+    return {
+        "ce": lambda: EG.exact_einsum("efab,ijef->ijab", vvvv, t2, A_pre=ce, maxdeg=7),
+        "cb": lambda: EG.exact_einsum("ie,baje->ijab", t1, vvov, B_pre=cb, maxdeg=7),
+        "xe": lambda: EG.exact_einsum("mjae,iemb->ijab", t2, ovov, L=6, maxdeg=7),
+        "chunkscaled": lambda: EG.exact_einsum("ijef,efab->ijab", t2, None, L=6, maxdeg=7,
+                                               B_pre=limbs, B_shape=(v, v, v, v)),
+        "streamed": lambda: EG.gemm_B_pre_streamed(t2.reshape(o * o, v * v), limbs, maxdeg=6),
+        "dig": lambda: EG.exact_gemm(ovov.reshape(o * v, o * v), B_dig=B_dig, L=6, maxdeg=7),
+    }
+
+
+@pytest.mark.parametrize("case", ["ce", "cb", "xe", "chunkscaled", "streamed", "dig"])
+def test_digit_graph_replays_equal_the_eager_call_bit_for_bit(case):
+    """Inside a graph scope a call runs eagerly at its first meeting,
+    is captured and replayed at its second, and replayed at its third:
+    each result equals the eager call's bit for bit, with its strides;
+    the launch counters rise as three eager calls' would; once the
+    scope has closed, the memory its graphs held is no longer allocated
+    (an eager call after it makes the workspace that closing cleared)."""
+    from afesp_tpu_torch.ops import exact_gemm as EG
+
+    dev = _card()
+    call = _digit_graph_cases(dev)[case]
+    with EG.graph_scope():  # cuBLAS and the allocator warmed, outside the count
+        for _ in range(3):
+            call()
+    want = call()
+    before = _digit_graph_counts()
+    call()
+    eager = [a - b for a, b in zip(_digit_graph_counts(), before)]
+    held = torch.cuda.memory_allocated(dev)
+    before = _digit_graph_counts()
+    with EG.graph_scope():
+        got = [call() for _ in range(3)]
+        torch.cuda.synchronize(dev)
+    counts = [a - b for a, b in zip(_digit_graph_counts(), before)]
+    for g in got:
+        assert torch.equal(g, want) and g.stride() == want.stride(), case
+    assert counts[:3] == [3, 1, 1]
+    assert counts[3:] == [3 * n for n in eager[3:]] and eager[3] > 0
+    del got, g
+    assert torch.cuda.memory_allocated(dev) < held
+    call()
+    assert torch.cuda.memory_allocated(dev) == held
+
+
+def _pvtz_hybrid_run(tmp_path, name: str, graphs: bool, monkeypatch):
+    """run_calculation on the pVTZ water fixture with the els.in of
+    `expected_jax_cpu<name>.json` ("hybrid"), recording on; with graphs
+    off the solve's scope is a plain null context.  Returns the result,
+    the report, the record, the keys the scope met and the counters'
+    change."""
+    import contextlib
+
+    from afesp_tpu_torch import trace
+    from afesp_tpu_torch.driver import run_calculation
+    from afesp_tpu_torch.io.report import Reporter
+    from afesp_tpu_torch.ops import exact_gemm as EG
+
+    fixture = REPO / "data" / "h2o-cc-pvtz-2.00_104.45"
+    want = json.loads((fixture / f"expected_jax_cpu{name}.json").read_text())
+    wd = tmp_path / ("graphs" if graphs else "eager")
+    wd.mkdir()
+    for f in ("s.dat", "t.dat", "v.dat", "geom.dat"):
+        shutil.copy(fixture / f, wd / f)
+    (wd / "eri.dat").symlink_to(REPO / "data" / "h2o-cc-pvtz" / "eri.dat")
+    (wd / "els.in").write_text(want["els_in"])
+    keys = []
+    with monkeypatch.context() as m:
+        if graphs:
+            key = EG._call_key
+
+            def spy(*a):
+                out = key(*a)
+                keys.append(out[0])
+                return out
+            m.setattr(EG, "_call_key", spy)
+        else:
+            m.setattr(EG, "graph_scope", contextlib.nullcontext)
+        stream = io.StringIO()
+        before = _digit_graph_counts()
+        trace.enable()
+        try:
+            res = run_calculation(wd, Reporter(stream=stream))
+        finally:
+            trace.disable()
+        torch.cuda.synchronize()
+        counts = [a - b for a, b in zip(_digit_graph_counts(), before)]
+    return res, stream.getvalue(), trace.records()[-1], keys, counts, want
+
+
+@pytest.mark.parametrize("name", ["_crccsd_t_spatial_hybrid", "_hybrid"],
+                         ids=["restricted", "spinorb"])
+def test_hybrid_solve_with_digit_graphs_is_the_eager_solve_bit_for_bit(name, tmp_path,
+                                                                       monkeypatch):
+    """A hybrid CCSD solve of the pVTZ water on the card with its digit
+    GEMMs replayed from graphs prints the eager solve's energies bit for
+    bit, in the same iterations (JAX's count), with the same int8 GEMM
+    launches and the same syncs each iteration.  Captures are the keys
+    met at least twice; replays are the calls less the captures and the
+    first meetings."""
+    from torch_fixtures import breakdown_block
+
+    _card()
+    res, text, record, keys, counts, want = _pvtz_hybrid_run(tmp_path, name, True, monkeypatch)
+    eres, etext, erecord, _, ecounts, _ = _pvtz_hybrid_run(tmp_path, name, False, monkeypatch)
+    assert breakdown_block(text) == breakdown_block(etext)
+    assert res.cc.energies == eres.cc.energies and res.cc.iterations == want["cc_iterations"]
+    assert torch.equal(res.cc.t2, eres.cc.t2)
+    assert counts[3:] == ecounts[3:] and ecounts[:3] == [0, 0, 0]
+    met = {k: keys.count(k) for k in keys}
+    calls, captures, replays = counts[:3]
+    assert calls == len(keys) > 0
+    assert captures == sum(n >= 2 for n in met.values()) > 0
+    assert replays == calls - captures - len(met)
+    syncs = [[s.counts["syncs"] for s in r if s.name == "ccsd.iter"] for r in (record, erecord)]
+    assert syncs[0] == syncs[1] and len(syncs[0]) == res.cc.iterations

@@ -138,7 +138,8 @@ def test_a_counter_lands_in_the_innermost_open_span(recording, monkeypatch):
     assert calc.counts["work.launches"] == 4 and calc.counts["syncs"] == 1
     assert sibling.counts["work.launches"] == 0 and sibling.counts["syncs"] == 0
     assert set(calc.counts) == {"syncs", "_int_mm.launches", "digit_pair_gemm.launches",
-                                "work.launches"}
+                                "digit_graph.calls", "digit_graph.captures",
+                                "digit_graph.replays", "work.launches"}
 
 
 def test_enable_and_disable_are_idempotent():
@@ -195,6 +196,15 @@ def test_hybrid_int8_gemms_all_land_in_the_cc_iterations(hybrid_run):
     issues = {record.index(s) for s in named(record, "ccsd.issue")}
     gemms = named(record, "digit_gemm")
     assert gemms and all(s.parent in issues for s in gemms)
+
+
+def test_no_digit_graph_counter_moves_off_the_card(hybrid_run):
+    """The hybrid CCSD solve opens its digit-graph scope on the CPU too,
+    where no call engages it: the run's digit_graph counters stay 0."""
+    _, _, record = hybrid_run
+    assert record[0].counts["digit_pair_gemm.launches"] > 0
+    for name in ("calls", "captures", "replays"):
+        assert record[0].counts[f"digit_graph.{name}"] == 0
 
 
 def test_the_eri_upload_is_a_span(recording):
