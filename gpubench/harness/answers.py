@@ -5,9 +5,12 @@ that decides `correct`.
 not the report's ten decimals); the reference module returns the same
 keys.  Four numbers are compared, each against its own limit from
 `limits/<cell>.json`: the largest absolute gap, in hartree, over the
-keys of its group that both sides give.  The CR values are a group of
-their own, since they alone read the CR chain, which runs in f32 where
-the mix asks for "hybrid" and the other triples values do not.
+keys of its group that the reference gives.  The CR values are a group
+of their own, since they alone read the CR chain, which runs in f32
+where the mix asks for "hybrid" and the other triples values do not.
+A spin-orbital CCSD(T) has one triples value, its CCSD(T) correlation
+energy (`RunResult.e_ccsd_t`), which goes under "e_ccsd_tt", the key of
+that energy in the restricted family, and so into the "e_triples" group.
 """
 
 from __future__ import annotations
@@ -23,10 +26,20 @@ GROUPS = {
 }
 
 
+def spinorb_triples_ran(res) -> bool:
+    """Whether `res` is of a spin-orbital CCSD(T): no restricted triples,
+    an unrestricted configuration and a CCSD(T) calc type."""
+    cfg = getattr(res, "cfg", None)
+    return (getattr(res, "triples", None) is None and cfg is not None
+            and not cfg.restricted and cfg.wants_triples)
+
+
 def program_values(res) -> dict:
     """The breakdown values of the program's `RunResult`: the RHF total
     energy, the MP2 and CCSD correlation energies and, where the restricted
-    triples ran, their six correlation energies; with the iteration counts."""
+    triples ran, their six correlation energies, where the spin-orbital
+    ones ran, its CCSD(T) correlation energy as "e_ccsd_tt"; with the
+    iteration counts."""
     out = {"e_hf": res.e_hf + res.e_nuc, "e_mp2": res.e_mp2, "e_ccsd": res.e_ccsd}
     hf, cc, tr = getattr(res, "hf", None), getattr(res, "cc", None), getattr(res, "triples", None)
     if hf is not None:
@@ -35,6 +48,8 @@ def program_values(res) -> dict:
         out["cc_iterations"] = cc.iterations
     if tr is not None:
         out.update({k: getattr(tr, k) for k in TRIPLES})
+    elif spinorb_triples_ran(res):
+        out["e_ccsd_tt"] = res.e_ccsd_t
     return out
 
 

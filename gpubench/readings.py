@@ -11,11 +11,14 @@ to back (as in the window), the f64 reference, and each control put in
 the program's place.  A control is one layer in a lower precision:
 
   program:triples=<tier>        the program, its (T) run at that tier
-                                ("hybrid": f32 panels and the f32 CR chain)
+                                (`do_ccsd_t_spinorb` for a _spinorb calc
+                                type, else `do_ccsd_t_spatial`; "hybrid":
+                                f32 panels, and the f32 CR chain)
   program:<els key>=<value>     the program with that els.in key
                                 (ccsd_precision=hybrid: digit-GEMM CCSD)
   reference:<stage>=<dtype>     the reference with one stage in that dtype
-                                (fock, corr, triples, cr; `reference/rccsd_t`)
+                                (fock, corr, triples, and cr in
+                                `reference/rccsd_t`)
 
 One JSON line a seed: each compared number's gap, and each value's, for
 every program calculation and each control; at the end the lower
@@ -47,13 +50,24 @@ from gpubench import run  # noqa: E402
 from gpubench.harness import answers, spec  # noqa: E402
 from gpubench.harness.patch import Patches  # noqa: E402
 
-TRIPLES_TARGET = "afesp_tpu_torch.driver:do_ccsd_t_spatial"
+TRIPLES_TARGETS = {"spatial": "afesp_tpu_torch.driver:do_ccsd_t_spatial",
+                   "spinorb": "afesp_tpu_torch.driver:do_ccsd_t_spinorb"}
+
+
+def triples_target(calc_type: str) -> str:
+    """The program's (T) function of the calc type's formulation."""
+    return TRIPLES_TARGETS["spinorb" if calc_type.endswith("_spinorb") else "spatial"]
 
 
 def expected_values(path: Path) -> dict:
+    """The breakdown of a committed JSON of JAX's values; a spin-orbital
+    one's CCSD(T) is its CCSD and its f64 (T) (`spinorb_triples.e_t_f64`)."""
     want = json.loads(Path(path).read_text())
-    return {"e_hf": want["e_hf_total"], "e_mp2": want["e_mp2_corr"],
-            "e_ccsd": want["e_ccsd_corr"], **want["triples"]}
+    out = {"e_hf": want["e_hf_total"], "e_mp2": want["e_mp2_corr"],
+           "e_ccsd": want["e_ccsd_corr"]}
+    if "spinorb_triples" in want:
+        return out | {"e_ccsd_tt": want["e_ccsd_corr"] + want["spinorb_triples"]["e_t_f64"]}
+    return out | want["triples"]
 
 
 def value_gaps(got: dict, ref: dict) -> dict:
@@ -71,7 +85,7 @@ def run_control(s: run.Session, draw: int, control: str) -> dict:
         return s.reference(draw, lower={key: getattr(torch, value)})
     if side == "program" and key == "triples":
         with Patches() as patches:
-            patches.wrap_everywhere(TRIPLES_TARGET,
+            patches.wrap_everywhere(triples_target(s.cell.traffic["calc_type"]),
                                     lambda fn: functools.partial(fn, precision=value))
             return s.calc(draw)
     if side == "program":

@@ -1,11 +1,13 @@
 """The harness on the CPU: the yardstick's counts and trace arithmetic,
-the window rule, the import rules, a tiny cell driven end to end through
-`run.main` with the card-only steps skipped, a cell added by files
+the window rule, the import rules, the values read from the program's
+results, tiny cells (restricted and spin-orbital) driven end to end
+through `run.main` with the card-only steps skipped, each added by files
 alone, and faults planted in the program that `correct` has to catch."""
 
 from __future__ import annotations
 
 import ast
+import functools
 import hashlib
 import itertools
 import json
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from gpubench import run
-from gpubench.harness import counts, spec, trace
+from gpubench.harness import answers, counts, spec, trace
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "gpubench"
@@ -41,6 +43,57 @@ def test_trimer_ccsd_iteration_counts():
     assert counts.digit_pairs(6) == 21 and counts.digit_pairs(5, 6) == 15
     assert counts.spatial_ccsd_iteration_flops(10, 106, "hybrid") > \
         20 * counts.spatial_ccsd_iteration_flops(10, 106, "f64")
+
+
+def test_spinorb_bounds_are_the_kernel_table_and_the_iteration_bound():
+    # K1 at the spin-orbital dimer (o=20, v=212: twice the spatial sizes):
+    # the Sz-allowed blocks, 14.6% of the dense cube's 228.3 ms
+    k1 = counts.spinorb_triples_flops(20, 212, strict=True) / counts.PEAK_F64
+    assert round(k1 * 1e3, 1) == 33.4
+    # the spin-orbital f64 iteration, Sz-blocked (ROADMAP: 6.0 ms)
+    it = counts.spinorb_ccsd_iteration_flops(20, 212, "f64") / counts.PEAK_F64
+    assert round(it * 1e3, 1) == 6.0
+    # compute bounds both: the bytes take less
+    assert counts.spinorb_triples_bytes(20, 212) / counts.HBM_BYTES_S < k1 / 100
+    assert counts.spinorb_ccsd_iteration_bytes(20, 212) / counts.HBM_BYTES_S < it
+    # Sz sparsity: of the 64 spin assignments of m, n, e, f, i, j, the 10
+    # with m+n = e+f = i+j survive; the hybrid iteration counts 15 digit
+    # pairs a contraction
+    assert counts.sz_fraction("mnef,ijef->mnij") == 10 / 64
+    assert counts.sz_fraction("mf,mafe->ae") == 16 / 64
+    assert counts.spinorb_ccsd_iteration_flops(20, 212, "hybrid") > \
+        10 * counts.spinorb_ccsd_iteration_flops(20, 212, "f64")
+
+
+def test_spinorb_triples_count_is_the_work_of_the_allowed_spin_blocks():
+    # the full cube carries `sz_fraction`'s shares: f-sums 18/128, m-sums
+    # 18/128, outer products 6/32, and t3's allowed blocks 20/64
+    o, v = 20, 212
+    share = (3 * counts.sz_fraction("jkae,eibc->ijkabc") * v**4
+             + 3 * counts.sz_fraction("imbc,majk->ijkabc") * o * v**3
+             + 3 * counts.sz_fraction("ia,jkbc->ijkabc") * v**3)
+    cube = o**3 * (2.0 * share + 10 * 20 / 64 * v**3)
+    assert counts.spinorb_triples_flops(o, v) == pytest.approx(cube, rel=1e-12)
+    # the strict triples, counted index by index (spins interleaved: the
+    # count does not depend on the order of the spin-orbitals)
+    o, v = 6, 4
+    spin = [p % 2 for p in range(max(o, v))]
+    mac = elementwise = 0
+    for trip in itertools.combinations(range(o), 3):
+        st = [spin[p] for p in trip]
+        for r in range(3):
+            sx, s1, s2 = st[r], st[(r + 1) % 3], st[(r + 2) % 3]
+            for a, b, c in itertools.product(range(v), repeat=3):
+                sa, sb, sc = spin[a], spin[b], spin[c]
+                mac += sum(s1 + s2 == sa + spin[e] and spin[e] + sx == sb + sc
+                           for e in range(v))
+                mac += sum(sx + spin[m] == sb + sc and spin[m] + sa == s1 + s2
+                           for m in range(o))
+                mac += sx == sa and s1 + s2 == sb + sc
+        elementwise += 10 * sum(spin[a] + spin[b] + spin[c] == sum(st)
+                                for a, b, c in itertools.product(range(v), repeat=3))
+    assert counts.spinorb_triples_flops(o, v, strict=True) == pytest.approx(
+        2.0 * mac + elementwise, rel=1e-12)
 
 
 def test_bound_is_the_longer_of_compute_and_memory():
@@ -155,17 +208,19 @@ TINY_CONFIG = {
 }
 
 
-def add_cell(root: Path, name: str, precision: str, limits: dict) -> None:
+def add_cell(root: Path, name: str, precision: str, limits: dict,
+             calc_type: str = "CRCCSD(T)_spatial", reference: str = "rccsd_t") -> None:
     """A new configuration, mix and cell, by new files and new entries."""
     b = root / "gpubench"
     config = dict(TINY_CONFIG, els_in=json.loads(
         (BENCH / "configs" / "h2o-dimer-ccpvtz.json").read_text())["els_in"])
     (b / "configs" / "h2o-ccpvdz.json").write_text(json.dumps(config))
-    (b / "traffic" / f"tiny-{precision}.json").write_text(json.dumps(
-        {"calc_type": "CRCCSD(T)_spatial", "ccsd_precision": precision,
+    traffic = f"tiny-{reference}-{precision}"
+    (b / "traffic" / f"{traffic}.json").write_text(json.dumps(
+        {"calc_type": calc_type, "ccsd_precision": precision,
          "displacement_bohr": 0.01, "geometry_draws": [1, 2],
          "loop": {"kind": "closed", "clients": 1}, "env": {},
-         "reference": "rccsd_t"}))
+         "reference": reference}))
     (b / "limits" / f"{name}.json").write_text(json.dumps(limits))
     bench = json.loads((root / "BENCHMARK.json").read_text())
     if not any(c["name"] == "h2o-ccpvdz" for c in bench["configs"]):
@@ -173,7 +228,7 @@ def add_cell(root: Path, name: str, precision: str, limits: dict) -> None:
                                  "file": "gpubench/configs/h2o-ccpvdz.json", "reduced": [],
                                  "why": "a tiny cell for the CPU tests"})
     bench["workloads"].append({"name": name, "config": "h2o-ccpvdz",
-                               "traffic": f"tiny-{precision}", "chips": 1, "why": "test"})
+                               "traffic": traffic, "chips": 1, "why": "test"})
     for m in bench["per_layer"]:
         m["workloads"] = m.get("workloads", []) + [name]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
@@ -229,6 +284,61 @@ def test_a_traced_run_reports_the_per_layer_metrics(root, capsys):
     assert all(0 < m["value"] < 100 for k, m in res["metrics"].items() if k.endswith("_pct"))
 
 
+# an E(T) of ~0.027 Ha scaled by 1 + 1e-8 moves 2.7e-10
+SPINORB_LIMITS = {"e_hf": 1e-9, "e_corr": 1e-9, "e_triples": 1e-10}
+
+
+def add_spinorb_cell(root: Path, monkeypatch) -> None:
+    """The tiny spin-orbital cell, its (T) run at "f64" as K1 runs it on
+    a card: the CPU's default tier is the f32 one, whose gap (1e-11 to
+    5e-10 here) no limit that a 1e-8 fault would cross can hold."""
+    from afesp_tpu_torch import driver
+
+    add_cell(root, "tiny-spinorb", "f64", SPINORB_LIMITS, calc_type="CCSD(T)_spinorb",
+             reference="ccsd_t_spinorb")
+    monkeypatch.setattr(driver, "do_ccsd_t_spinorb",
+                        functools.partial(driver.do_ccsd_t_spinorb, precision="f64"))
+
+
+def test_a_spinorb_cell_is_added_by_files_alone_and_judged_on_its_ccsd_t(root, capsys,
+                                                                          monkeypatch):
+    before = digest(root)
+    add_spinorb_cell(root, monkeypatch)
+    after = digest(root)
+    assert all(after[k] == v for k, v in before.items())  # nothing edited
+    rc, res, err = run_cell(root, "tiny-spinorb", capsys)
+    assert rc == 0, err
+    assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 2
+    assert set(res["checks"]) == set(SPINORB_LIMITS)
+    # the (T) check reads the spin-orbital CCSD(T), not an empty group
+    assert 0 < res["checks"]["e_triples"]["value"] <= SPINORB_LIMITS["e_triples"]
+    # the program's and the reference's SCF/CC counts, side by side
+    counts_line = next(line for line in err.split("\n") if line.startswith("iterations:"))
+    prog, ref = counts_line.split("; reference ")
+    assert set(re.findall(r"\d+/\d+", prog)) == set(re.findall(r"\d+/\d+", ref))
+
+
+def test_program_values_are_unchanged_for_restricted_results_and_read_the_spinorb_ccsd_t():
+    from types import SimpleNamespace
+
+    from afesp_tpu_torch.config import parse_els_in
+
+    def result(calc_type, triples=None):
+        return SimpleNamespace(
+            cfg=parse_els_in(f'&elsinput\ncalc_type="{calc_type}",\n/\n'), e_hf=-1.0,
+            e_nuc=0.25, e_mp2=-0.125, e_ccsd=-0.1875, e_ccsd_t=-0.21875, triples=triples,
+            hf=SimpleNamespace(iterations=7), cc=SimpleNamespace(iterations=5))
+
+    base = {"e_hf": -0.75, "e_mp2": -0.125, "e_ccsd": -0.1875,
+            "scf_iterations": 7, "cc_iterations": 5}
+    tr = SimpleNamespace(**{k: -0.2 - i / 100 for i, k in enumerate(answers.TRIPLES)})
+    assert answers.program_values(result("CRCCSD(T)_spatial", tr)) == base | {
+        k: getattr(tr, k) for k in answers.TRIPLES}
+    for calc in ("CCSD_spatial", "MP2_spatial", "CCSD_spinorb", "MP2_spinorb"):
+        assert answers.program_values(result(calc)) == base, calc
+    assert answers.program_values(result("CCSD(T)_spinorb")) == base | {"e_ccsd_tt": -0.21875}
+
+
 def test_no_card_means_no_result(root, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = run.main(["--workload", "dimer-crccsdt-hybrid", "--seed", "1", "--seconds", "1"],
@@ -280,5 +390,39 @@ def test_correct_is_false_under_a_planted_fault(root, capsys, monkeypatch, fault
     add_cell(root, "tiny-f64", "f64", LIMITS)
     fault(monkeypatch)
     rc, res, err = run_cell(root, "tiny-f64", capsys)
+    assert rc == 0, err
+    assert res["correct"] is False and res["failed"] == res["attempted"]
+
+
+def fault_half_the_spinorb_triples(monkeypatch):
+    """The spin-orbital (T) sums over half of its triples i<j<k."""
+    from afesp_tpu_torch.methods import triples_spinorb as ts
+
+    whole = ts._triples_total_strict
+
+    def half(*args, **kw):
+        *operands, ii, jj, kk = args
+        n = len(ii) // 2
+        return whole(*operands, ii[:n], jj[:n], kk[:n], **kw)
+    monkeypatch.setattr(ts, "_triples_total_strict", half)
+
+
+def fault_scaled_spinorb_triples(monkeypatch):
+    """The spin-orbital E(T) scaled by 1 + 1e-8 where it is produced."""
+    from afesp_tpu_torch import driver
+
+    real = driver.do_ccsd_t_spinorb
+
+    def scaled(sys_, cc, *a, **k):
+        return cc.e_ccsd + (real(sys_, cc, *a, **k) - cc.e_ccsd) * (1 + 1e-8)
+    monkeypatch.setattr(driver, "do_ccsd_t_spinorb", scaled)
+
+
+@pytest.mark.parametrize("fault", [fault_unchanged_cc_state, fault_half_the_spinorb_triples,
+                                   fault_scaled_spinorb_triples])
+def test_a_spinorb_cell_is_not_correct_under_a_planted_fault(root, capsys, monkeypatch, fault):
+    add_spinorb_cell(root, monkeypatch)
+    fault(monkeypatch)
+    rc, res, err = run_cell(root, "tiny-spinorb", capsys)
     assert rc == 0, err
     assert res["correct"] is False and res["failed"] == res["attempted"]
