@@ -7,10 +7,16 @@ trace, `_final_breakdown`).  Dispatch on (restricted, calc_type):
   restricted:   RHF -> MP2_spatial -> CCSD_spatial -> (T)_spatial family
   spin-orbital: RHF -> MP2_spatial -> CCSD_spinorb -> (T)_spinorb
 
-Under AFESP_FORCE_STREAM=1 the restricted chain runs the streaming tier
+The tier is chosen once a calculation, after the read-in
+(`methods/mp2.calc_tier`), and handed to RHF and MP2.  Under
+AFESP_FORCE_STREAM=1, or on a card where the dense path's n^4 tensors
+would not fit at "hybrid", the restricted chain runs the streaming tier
 (the MP2 stage hands CCSD its slices and vvvv limbs, no dense MO
-tensor); the spin-orbital CCSD needs the dense tensor and is refused
-there with the JAX driver's ValueError.
+tensor); where they would not fit at "f64", the sliced f64 tier (RHF
+from the pair-row table, the MP2 stage hands CCSD f64 slices).  The
+spin-orbital CCSD needs the dense tensor and is refused on both, with
+the JAX driver's ValueError under the variable and one that names the
+memory rule otherwise.
 
 with the reference's timing lines and final energy-breakdown table
 (labels are scraped by the binding-curve wrapper, so they are API).
@@ -172,15 +178,17 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device) -
             mesh = pmesh.default_mesh(want, dev)
             rep.write(f" Using a {want}-device mesh for CC stages.")
 
+    tier = mp2_mod.calc_tier(sys_.nbasis, cfg, dev)
     with trace.span("Restricted Hartree-Fock"):
-        hf = hf_mod.do_rhf(sys_, ints, cfg, rep, workdir, device=dev)
+        hf = hf_mod.do_rhf(sys_, ints, cfg, rep, workdir, device=dev, tier=tier)
     res.hf = hf
     res.e_hf = hf.e_hf
     res.e_highest = 0.0
 
     if cfg.wants_mp2:
         with trace.span("MP2"):
-            mp2 = mp2_mod.do_mp2_spatial(sys_, ints, cfg, hf, rep, workdir, device=dev)
+            mp2 = mp2_mod.do_mp2_spatial(sys_, ints, cfg, hf, rep, workdir, device=dev,
+                                         tier=tier)
         res.e_mp2 = mp2.e_mp2
         res.e_highest = mp2.e_mp2
 
@@ -203,12 +211,22 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device) -
                 res.triples = tr
                 res.e_highest = tr.e_highest
         elif cfg.wants_ccsd:
-            if mp2.eri_mo is None:
+            if mp2.eri_mo is None and mp2_mod._force_stream():
                 raise ValueError(
                     "spin-orbital CCSD needs the dense MO tensor; the"
                     f" streaming tier (nbasis >= {mp2_mod.STREAM_NBASIS})"
                     " currently serves the spatial formulation only —"
                     " use a *_spatial calc_type at this scale"
+                )
+            if mp2.eri_mo is None:
+                raise ValueError(
+                    "spin-orbital CCSD needs the dense MO tensor; the dense path's"
+                    f" {mp2_mod.dense_need_bytes(sys_.nbasis, cfg.ccsd_precision):.3e}"
+                    f" bytes at nbasis {sys_.nbasis} and ccsd_precision"
+                    f" {cfg.ccsd_precision!r}, with {mp2_mod.TIER_HEADROOM_BYTES:.0e} bytes"
+                    " of headroom, exceed the card's memory (methods/mp2.choose_tier),"
+                    f" so the {tier} tier ran, which serves the spatial formulation only"
+                    " — use a *_spatial calc_type at this scale"
                 )
             t_cc = time.perf_counter()
             with trace.span("CCSD"):

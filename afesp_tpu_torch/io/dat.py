@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..ops.packed_eri import unpack_eri
+from ..ops.packed_eri import expand_packed_rows, unpack_eri
 from . import fastparse
 
 
@@ -61,6 +61,9 @@ class IntStore:
     eri_packed: np.ndarray | None = None  # 8-fold store, reference eri_ind order
     _eri_dev: torch.Tensor | None = None  # the one device copy (eri_on_device)
     _packed_dev: torch.Tensor | None = None  # the streaming tier's (packed_on_device)
+    # the sliced f64 tier's row table (rows_on_device): an attribute, not a
+    # field, so that the fields stay the JAX package's IntStore's
+    _rows_dev = None
 
     def _upload_packed(self, dev: torch.device) -> torch.Tensor:
         """The packed store on `dev`: the one upload both device forms
@@ -110,6 +113,32 @@ class IntStore:
         """Drop the cached device packed store (the sliced transform
         frees it once its row table supersedes it)."""
         self._packed_dev = None
+
+    def rows_on_device(self, device: str | torch.device) -> torch.Tensor:
+        """The f64 pair-row table of the sliced f64 tier on `device`,
+        made once a calculation and cached: (npair, n^2) with
+        rows[pair(i,j), k*n + l] = (ij|kl), expanded on the device from
+        the one upload of the packed store (`expand_packed_rows`), which
+        is not kept.  RHF's Fock builds and the sliced f64 transform
+        both read it; the dense tensor is never made (28.4 GB at 290 bf,
+        against 56.6 GB dense)."""
+        dev = torch.device(device)
+        if self._rows_dev is None or self._rows_dev.device != dev:
+            if dev.type == "cuda":
+                # the table is made with the blocks an earlier stage or
+                # calculation freed given back, so that none splits the
+                # card for it and for the transform's v_vvvv
+                torch.cuda.empty_cache()
+            packed = self._packed_dev
+            if packed is None or packed.device != dev:
+                packed = self._upload_packed(dev)
+            self._rows_dev = expand_packed_rows(packed, self.nbasis)
+        return self._rows_dev
+
+    def free_device_rows(self) -> None:
+        """Drop the cached row table (the sliced f64 transform frees it
+        once its first half has read it)."""
+        self._rows_dev = None
 
 
 def _parse_numeric_table(path: Path, ncols: int) -> np.ndarray:

@@ -27,7 +27,10 @@ transform and v_vvvv exists only as per-chunk-scaled int8 limbs
 (`vvvv_B`): the solve contracts c_oovv against them, the CR-CC chain's
 one v_vvvv term is computed from them once the solve ends
 (`cr_vvvv_term`), and ccsd_precision "f64" is refused, as in the JAX
-package.
+package.  On the sliced f64 tier (`eri_mo` None, f64 slices that carry
+v_vvvv, no limbs) the solve is the dense path's, on those slices; the
+CR term is the dense path's contraction, made once the solve ends, and
+v_vvvv is then dropped, so that the (T) stage runs without it.
 
 Under a device mesh (`mesh`, JAX `:634-662,745-767`) the vvvv term of
 every route is split over the mesh (`parallel/ccsd_shard`): the dense
@@ -74,7 +77,8 @@ class Slices:
     v_vvov: torch.Tensor  # (v,v,o,v)
     v_oovo: torch.Tensor  # (o,o,v,o)
     v_oooo: torch.Tensor  # (o,o,o,o)
-    v_vvvv: torch.Tensor | None  # (v,v,v,v); None on the streaming tier
+    v_vvvv: torch.Tensor | None  # (v,v,v,v); None on the streaming tier, and on
+    # the sliced f64 tier once its CCSD solve ends
 
 
 @dataclasses.dataclass
@@ -95,9 +99,10 @@ class CCSDResult:
     energies: list[float] = dataclasses.field(default_factory=list)  # per iteration
     # the CCSD arithmetic that ran: "f64", or "hybrid" (the digit GEMMs)
     precision_used: str = "f64"
-    # streaming tier only: the CR chain's one v_vvvv contraction
-    # es("ecba,ie->ciab", v_vvvv, t1) (ccsd.f90:2513), computed from the
-    # digit limbs when the solve ends (`_cr_vvvv_term_from_B`)
+    # sliced tiers only: the CR chain's one v_vvvv contraction
+    # es("ecba,ie->ciab", v_vvvv, t1) (ccsd.f90:2513), computed when the
+    # solve ends, from the digit limbs on the streaming tier
+    # (`_cr_vvvv_term_from_B`), from the f64 v_vvvv on the sliced f64 tier
     cr_vvvv_term: torch.Tensor | None = None
 
 
@@ -468,7 +473,8 @@ def do_ccsd_spatial(
 ) -> CCSDResult:
     """Restricted CCSD (do_ccsd_spatial, ccsd.f90:279-402) on the dense
     MO tensor `eri_mo`, or, with `eri_mo` None, on the streaming tier's
-    `slices` with v_vvvv as its digit limbs `vvvv_B`; with `mesh`
+    `slices` with v_vvvv as its digit limbs `vvvv_B`, or on the sliced
+    f64 tier's `slices` (v_vvvv among them, no limbs); with `mesh`
     (`parallel.mesh.Mesh`, its first entry `device`) the vvvv term is
     split over it (module docstring)."""
     dev = default_device(device)
@@ -482,8 +488,15 @@ def do_ccsd_spatial(
 
     nocc = sys_.nocc
     levels = torch.as_tensor(hf.levels, dtype=F64, device=dev)
-    external = eri_mo is None
-    if external:
+    # sliced tiers: the streaming tier's slices with the vvvv limbs
+    # (`external`), or the sliced f64 tier's slices that carry v_vvvv
+    sliced_f64 = eri_mo is None and vvvv_B is None and slices is not None \
+        and slices.v_vvvv is not None
+    external = eri_mo is None and not sliced_f64
+    if sliced_f64:
+        v = slices
+        D_ia, D_ijab, t1, t2, e0, r0 = spatial_cc_init_slices(v, levels, nocc)
+    elif external:
         if slices is None or vvvv_B is None:
             raise AssertionError("the streaming tier needs the slices and the vvvv limbs")
         if cfg.ccsd_precision not in ("hybrid", "pallas", "fused"):
@@ -573,6 +586,15 @@ def do_ccsd_spatial(
         # the CR chain's only v_vvvv contraction, from the limbs while
         # they are at hand (JAX `:738-760`)
         cr_term = _cr_vvvv_term_from_B(t1_out, vvvv_B, nv=sys_.nvirt)
+    if sliced_f64:
+        # the dense path's CR contraction es("ecba,ie->ciab", v_vvvv, t1)
+        # (`triples_spatial.cr_intermediates`), made before v_vvvv goes, as
+        # one GEMM over v_vvvv's (e, cba) matricisation: the einsum would
+        # copy v_vvvv first
+        if cfg.ccsd_t_comp_renorm:
+            nv = sys_.nvirt
+            cr_term = (t1_out @ v.v_vvvv.view(nv, -1)).view(nocc, nv, nv, nv).permute(1, 0, 3, 2)
+        v.v_vvvv = None
 
     return CCSDResult(
         e_ccsd=energy,

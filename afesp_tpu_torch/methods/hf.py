@@ -19,13 +19,22 @@ that MP2 shares (`IntStore.eri_on_device`).  Each iteration's host work
 (the DIIS step of the last Fock build, then F', eigh, density and
 energy) is the span `rhf.host` (`trace.py`).
 
+On the sliced f64 tier (`mp2.calc_tier`: "f64" above the dense path's
+memory rule, a departure from the JAX package) the dense tensor is never
+built: each Fock build reads the f64 pair-row table
+(`IntStore.rows_on_device`, which the sliced transform then consumes),
+J as one GEMV and K as one batched GEMV over the table's rows
+(`fock_build_rows`), in f64.  Each device Fock build, on every tier, is
+the span `rhf.fock`.
+
 The streaming tier (`afesp_tpu/methods/hf.py:143-413,477-549`), taken
-under `AFESP_FORCE_STREAM=1` at nbasis >= `_TPU_FOCK_NBASIS`, as in the
-JAX package off a TPU: the J and K matricisations are gathered from the
-packed store on the device and digitized once (`_fock_stream_consts`),
-every Fock build is two exact digit GEMVs (`_fock_build_stream`), and a
-device prelude (`_scf_prelude_device`: canonical purification, no
-eigensolve, and Pulay DIIS on the device) gives the host loop its
+under `AFESP_FORCE_STREAM=1` (or by the memory rule at "hybrid") at
+nbasis >= `_TPU_FOCK_NBASIS`, as in the JAX package off a TPU: the J
+and K matricisations are gathered from the packed store on the device
+and digitized once (`_fock_stream_consts`), every Fock build is two
+exact digit GEMVs (`_fock_build_stream`), and a device prelude
+(`_scf_prelude_device`: canonical purification, no eigensolve, and
+Pulay DIIS on the device) gives the host loop its
 starting Fock matrix.  The JAX prelude is one `while_loop` dispatch
 (for the TPU's remote link); the port's is a Python loop over device
 tensors with one readback per iteration, and one per block of
@@ -77,6 +86,32 @@ def fock_build(H: torch.Tensor, eri: torch.Tensor, D: torch.Tensor) -> torch.Ten
     n = H.shape[0]
     J = (eri.reshape(n * n, n * n) @ D.reshape(-1)).reshape(n, n)
     K = torch.einsum("ikjl,kl->ij", eri, D)
+    return H + 2.0 * J - K
+
+
+def fock_build_rows(H: torch.Tensor, rows: torch.Tensor, D: torch.Tensor,
+                    tk: torch.Tensor, tl: torch.Tensor) -> torch.Tensor:
+    """F = Hcore + 2J - K from the pair-row table rows[pair(a,b), (j,l)]
+    = (ab|jl) (a >= b: `tk`, `tl` the tri pairs in row order), with no
+    dense tensor:
+
+      J[a,b]  = rows[pair(a,b)] . D, one GEMV;
+      K[a,j] += sum_l (ab|jl) D[b,l]  and  K[b,j] += sum_l (ab|jl) D[a,l]
+               (a != b): one batched GEMV of every row, as an (n, n)
+               matrix, against the two density rows (Y[p, j, 0/1]), then
+               each K row summed over its n pairs in a fixed order.
+    Every product in f64."""
+    n = H.shape[0]
+    Jt = rows @ D.reshape(-1)
+    J = H.new_zeros((n, n))
+    J[tk, tl] = Jt
+    J[tl, tk] = Jt
+    Y = torch.bmm(rows.view(-1, n, n), torch.stack([D[tl], D[tk]], dim=2))  # (npair, j, 2)
+    a = torch.arange(n, device=H.device)
+    # K[a, :] = sum_b Y[pair(a,b), :, 0 if b <= a else 1]
+    p = pair_index(a[:, None], a[None, :])
+    c = (a[None, :] > a[:, None]).to(p.dtype)
+    K = Y.permute(0, 2, 1)[p, c].sum(dim=1)
     return H + 2.0 * J - K
 
 
@@ -337,7 +372,10 @@ def do_rhf(
     rep: Reporter | None = None,
     workdir: str | Path = ".",
     device: str | torch.device | None = None,
+    tier: str | None = None,
 ) -> HFResult:
+    """RHF on `tier` ("dense", "stream" or "sliced"; None:
+    `mp2.calc_tier`)."""
     dev = default_device(device)
     rep = rep or Reporter()
     rep.section("Restricted Hartree-Fock")
@@ -349,17 +387,23 @@ def do_rhf(
     S = ints.ovlp
     H = ints.core_hamil
     H_dev = torch.as_tensor(H, dtype=F64, device=dev)
-    stream = False
-    if n >= _TPU_FOCK_NBASIS and (ints.eri is not None or ints.eri_packed is not None):
-        from .mp2 import _force_stream
+    if tier is None:
+        from .mp2 import calc_tier
 
-        stream = _force_stream()
-    if stream:
-        # packed-resident tier: the J/K consts are gathered and digitized
-        # from the packed store; no dense tensor is built
+        tier = calc_tier(n, cfg, dev)
+    has_eri = ints.eri is not None or ints.eri_packed is not None
+    stream = tier == "stream" and n >= _TPU_FOCK_NBASIS and has_eri
+    sliced = tier == "sliced" and has_eri
+    if sliced or stream:
         tk_h, tl_h = np.tril_indices(n)
         tk = torch.as_tensor(tk_h, device=dev)
         tl = torch.as_tensor(tl_h, device=dev)
+    if sliced:
+        # the pair-row table: no dense tensor is built
+        rows = ints.rows_on_device(dev)
+    elif stream:
+        # packed-resident tier: the J/K consts are gathered and digitized
+        # from the packed store; no dense tensor is built
         fock_consts = _fock_stream_consts(ints.packed_on_device(dev), tk, tl, n=n)
         iu_h = np.triu_indices(n)
         iu = (torch.as_tensor(iu_h[0], device=dev), torch.as_tensor(iu_h[1], device=dev))
@@ -436,15 +480,19 @@ def do_rhf(
         energy_old = energy
         D_old = D
         D_dev = torch.as_tensor(D, dtype=F64, device=dev)
-        if stream:
-            # packed upper triangle, in f32 while far from convergence
-            # unless the prelude already converged the guess (JAX `:590-609`)
-            early = rms > 1e-3 and not prelude_guess
-            fp = _fock_build_stream(H_dev, D_dev, fock_consts, tk, tl, iu, packed_f32=early)
-            F_built = _from_upper(fp, iu_h, n)
-        else:
-            F_built = fock_build(H_dev, eri_dev, D_dev).cpu().numpy()
-            trace.synced()
+        with trace.span("rhf.fock"):
+            if stream:
+                # packed upper triangle, in f32 while far from convergence
+                # unless the prelude already converged the guess (JAX `:590-609`)
+                early = rms > 1e-3 and not prelude_guess
+                fp = _fock_build_stream(H_dev, D_dev, fock_consts, tk, tl, iu,
+                                        packed_f32=early)
+                F_built = _from_upper(fp, iu_h, n)
+            else:
+                F_dev = (fock_build_rows(H_dev, rows, D_dev, tk, tl) if sliced
+                         else fock_build(H_dev, eri_dev, D_dev))
+                F_built = F_dev.cpu().numpy()
+                trace.synced()
 
     if result is None:
         F = _diis_step(diis, F_built, D, S)

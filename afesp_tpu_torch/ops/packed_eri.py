@@ -45,3 +45,21 @@ def unpack_eri(packed: torch.Tensor, n: int) -> torch.Tensor:
     pair = pair_index(i[:, None], i[None, :]).reshape(-1)  # (n^2,)
     ind = pair_index(pair[:, None], pair[None, :])  # (n^2, n^2)
     return packed[ind].reshape(n, n, n, n)
+
+
+def expand_packed_rows(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Packed -> the f64 pair-row table (npair, n^2), rows[pair(i,j),
+    k*n + l] = (ij|kl): half the dense tensor's elements (the rows
+    i >= j), gathered on `packed`'s device in row blocks whose index
+    holds at most 5e7 elements (int32 arithmetic, as `unpack_eri`)."""
+    assert n <= 300, "int32 packed-index arithmetic overflows beyond n=300"
+    npair = n * (n + 1) // 2
+    dev = packed.device
+    i = torch.arange(n, dtype=torch.int32, device=dev)
+    kl = pair_index(i[:, None], i[None, :]).reshape(-1)  # (n^2,)
+    rows = torch.empty((npair, n * n), dtype=packed.dtype, device=dev)
+    bp = max(1, int(5e7 // (n * n)))
+    for p0 in range(0, npair, bp):
+        p = torch.arange(p0, min(p0 + bp, npair), dtype=torch.int32, device=dev)
+        rows[p0:p0 + p.numel()] = packed[pair_index(p[:, None], kl[None, :])]
+    return rows

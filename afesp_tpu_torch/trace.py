@@ -35,13 +35,17 @@ The spans (each read by a benchmark metric or emitted as a profiler
 range): `calc` and the stage spans "Integral read-in", "Restricted
 Hartree-Fock", "MP2", "CCSD", "CCSD(T)" (driver.py); `ccsd.iter`,
 `ccsd.issue`, `ccsd.readback` (ops/cc_step.py); `digit_gemm`
-(ops/exact_gemm.py); `rhf.host` (methods/hf.py); `eri.upload`
-(io/dat.py).  The counters: `syncs`, `_int_mm.launches`,
+(ops/exact_gemm.py); `rhf.host` and `rhf.fock` (methods/hf.py: each
+device Fock build, with its readback, on every tier); `mo.slices`
+(methods/mo_slices.py: the sliced transform, on both sliced tiers);
+`eri.upload` (io/dat.py).  The counters: `syncs`, `_int_mm.launches`,
 `digit_pair_gemm.launches` (ops/exact_gemm.py: what the device runs,
 a graph replay adding what its capture issued), `digit_graph.calls`,
 `digit_graph.captures`, `digit_graph.replays` (ops/exact_gemm.py: the
 outermost digit-GEMM calls on a card inside a graph scope, the graphs
-captured, the calls served by replaying one).
+captured, the calls served by replaying one), `mo_slices.vvvv_chunks`
+(methods/mo_slices.py: the v_vvvv chunks a sliced transform computed;
+0 on the dense tier).
 """
 
 from __future__ import annotations

@@ -139,7 +139,8 @@ def test_a_counter_lands_in_the_innermost_open_span(recording, monkeypatch):
     assert sibling.counts["work.launches"] == 0 and sibling.counts["syncs"] == 0
     assert set(calc.counts) == {"syncs", "_int_mm.launches", "digit_pair_gemm.launches",
                                 "digit_graph.calls", "digit_graph.captures",
-                                "digit_graph.replays", "work.launches"}
+                                "digit_graph.replays", "mo_slices.vvvv_chunks",
+                                "work.launches"}
 
 
 def test_enable_and_disable_are_idempotent():
