@@ -13,10 +13,10 @@
 // 1. spatial_layout_launch, once a call: spatial_gemm.cuh's layout_kernel
 //    lays out the numerator GEMM's operand tables straight from the
 //    inputs, and each triple's term offsets from the per-shape tables.
-// 2. spatial_group_launch, three a chunk: spatial_gemm.cuh's group GEMM
-//    on the f64 tensor cores (mma.sync m16n8k4 through dmma_tile.cuh),
-//    one launch a group for the x and m cubes of a chunk of triples, each
-//    group writing cubes of its own.
+// 2. spatial_group_launch, three a chunk: spatial_gemm.cuh's persistent
+//    group GEMM on the f64 tensor cores (mma.sync m16n8k4), one launch a
+//    group for the x and m cubes of a chunk of triples, each group writing
+//    cubes of its own.
 // 3. spatial_orbit_launch, one a chunk: sorted_orbit_kernel below, with
 //    orbit_tile.cuh's tile_triple_sums (shared with K5), stages each
 //    distinct 8-wide tile of a sorted tile triple's six orders once,
@@ -129,7 +129,8 @@ extern "C" int spatial_layout_launch(const void* t2, const void* vvov, const voi
 // to the group's own cubes: desc points at the chunk's first triple of
 // cube 0 (cubes desc_cube elements apart), cube at the group's cube 0
 // (cubes cube_stride elements apart); tile: the block tile (TILE_CONFIGS
-// of ops/triples_spatial_cuda.py).
+// of ops/triples_spatial_cuda.py, picked from the shape by its
+// tiled_tile_dims).
 extern "C" int spatial_group_launch(const void* L, const void* R, const void* desc,
                                     long long desc_cube, int ncube, int C, int v, int Kv, int Ko,
                                     int Np, long long NNp, int tile, int group,

@@ -20,8 +20,9 @@
 // group, 3 groups, x2 for CR: 7.2e9 for the 35 sorted triples of
 // H2O/cc-pVTZ (o = 5, v = 53), 0.11 ms at the 67 TFLOP/s f64 tensor-core
 // peak; the inputs are ~13 MB.  What it leaves on the table (PERF.md §6):
-// the group GEMM runs at about half the DMMA peak counting its padded
-// work (the tiles and stage counts tried did no better), and the
+// the group GEMM (spatial_gemm.cuh, its tile fitted to v: 128 x 112 at
+// the dimer's v = 106, issuing 1.06 times the true shape's multiply-adds;
+// 128 x 56 at v = 53, 1.10) runs near half the DMMA peak, and the
 // reduction reads the three groups' cubes in rows of 64 bytes.
 
 #include "sorted_triples.cuh"

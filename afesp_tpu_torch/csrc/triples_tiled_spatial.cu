@@ -15,13 +15,17 @@
 // Bound on the H100: operations, for the whole tier.  2 v^3 (2 v + 2 o)
 // flops per group, three groups a cube, x and m: 1.14e13 flops for the
 // 680 sorted triples of the 174-bf trimer (o = 15, v = 159), 171 ms at
-// the 67 TFLOP/s f64 tensor-core peak; each group's cubes cross device
-// memory twice (written by the GEMM, read by the reduction).
+// the 67 TFLOP/s f64 tensor-core peak, and 3.79e14 for the 2925 of the
+// 290-bf pentamer (o = 25, v = 265), 5.65 s; each group's cubes cross
+// device memory twice (written by the GEMM, read by the reduction).
 //
-// What it leaves on the table (times in PERF.md §6): stage 1 runs at
-// about 40% of the DMMA peak at the trimer's shape, one block an SM
-// whose epilogue leaves the tensor cores idle; the reduction reads the
-// three groups' cubes in rows of 64 bytes, rebuilds zn once a staged
-// tile and reads y's planes through the caches at every element.
+// What it leaves on the table (times in PERF.md §6): stage 1, the
+// persistent group GEMM of spatial_gemm.cuh, issues 1.03 times the true
+// shape's multiply-adds at the pentamer's shape and 1.02 at the
+// trimer's, but under sustained load the card runs at its power limit
+// and the GEMM near 34 TFLOP/s of issued work, about half the DMMA peak;
+// the reduction reads the three groups' cubes in rows of 64 bytes,
+// rebuilds zn once a staged tile and reads y's planes through the caches
+// at every element.
 
 #include "sorted_triples.cuh"

@@ -343,9 +343,14 @@ triples_finale_spatial.launches = 0
 
 # --------------------------------------------------------------- K4 -----
 
-# the block tiles of the numerator GEMM, csrc/spatial_gemm.cuh
-# launch_group_tile: (p, q) rows x group-axis columns
-TILE_CONFIGS = ((256, 64), (256, 80))
+# the tiles of the numerator GEMM, csrc/spatial_gemm.cuh launch_group_tile:
+# (p, q) rows x group-axis columns x K rows of a stage, and each tile's
+# warps: WARPS_M rows of MT m16 tiles, WARPS_N columns sharing the tile's
+# n8 tiles (the first ones one more where they do not divide evenly)
+TILE_CONFIGS = ((128, 136, 16), (128, 160, 16), (128, 112, 16), (128, 56, 16))
+TILE_WARPS = ((4, 2, 2), (2, 4, 4), (4, 2, 2), (4, 2, 2))
+# K rows of one fragment step: a stage's steps wholly past K are skipped
+GEMM_KSTEP = 8
 # budget of one chunk of K3's and K4's kernels: the three GEMM groups' x
 # (and m) cubes.  Chunks small enough for their cubes to stay in the
 # H100's 50 MB L2 were slower (PERF.md §6), so a chunk is as large as
@@ -374,17 +379,36 @@ def cube_chunk_len(total: int, v: int, has_m: bool) -> int:
     return -(-total // nchunk)
 
 
+def _gemm_dims(o: int, v: int) -> tuple[int, int, int, int]:
+    """(Np, Kv, Ko, NNp): the group axis padded to a multiple of 8 (the
+    MMA's N), the t2 terms' K = v and the m terms' K = o each padded to an
+    even count (16-byte copies never straddle two terms), the (p, q) rows
+    v*v padded to a multiple of 8."""
+    return -(-v // 8) * 8, -(-v // 2) * 2, -(-o // 2) * 2, -(-(v * v) // 8) * 8
+
+
+def gemm_macs(o: int, v: int, tile: int) -> int:
+    """The multiply-adds one group GEMM of one cube and triple issues
+    with tile `tile` of TILE_CONFIGS: its row tiles over the NNp rows, its
+    column tiles over the Np columns, its GEMM_KSTEP-deep steps over K."""
+    Np, Kv, Ko, NNp = _gemm_dims(o, v)
+    BM, BN, _ = TILE_CONFIGS[tile]
+    up = lambda x, b: -(-x // b) * b
+    return up(NNp, BM) * up(Np, BN) * up(2 * Kv + 2 * Ko, GEMM_KSTEP)
+
+
+def useful_macs(o: int, v: int) -> int:
+    """The multiply-adds of one group GEMM of one cube and triple at its
+    true shape: v^2 rows, v columns, K = 2v + 2o."""
+    return v**3 * (2 * v + 2 * o)
+
+
 def tiled_tile_dims(o: int, v: int) -> tuple[int, int, int, int, int]:
-    """(Np, Kv, Ko, NNp, tile) of the numerator GEMM: the group axis
-    padded to a multiple of 8 (the MMA's N), the t2 terms' K = v and the
-    m terms' K = o each padded to an even count (16-byte copies never
-    straddle two terms), the (p, q) rows v*v padded to a multiple of 8,
-    and the block tile of TILE_CONFIGS whose columns cover Np with the
-    least padding (the narrower on a tie)."""
-    Np = -(-v // 8) * 8
-    tile = min(range(len(TILE_CONFIGS)),
-               key=lambda t: (-(-Np // TILE_CONFIGS[t][1]) * TILE_CONFIGS[t][1], t))
-    return Np, -(-v // 2) * 2, -(-o // 2) * 2, -(-(v * v) // 8) * 8, tile
+    """(Np, Kv, Ko, NNp, tile) of the numerator GEMM (`_gemm_dims`), with
+    the tile of TILE_CONFIGS that issues the fewest multiply-adds at this
+    shape (`gemm_macs`), the first on a tie."""
+    tile = min(range(len(TILE_CONFIGS)), key=lambda t: (gemm_macs(o, v, t), t))
+    return (*_gemm_dims(o, v), tile)
 
 
 def tiled_layout(o: int, v: int, has_m: bool):
@@ -497,6 +521,26 @@ def orbit_tiles(v: int, device=None) -> torch.Tensor:
                               with_replacement=True).contiguous().to(device)
 
 
+def spatial_gemm(name: str, group_fn, args: tuple, *, o: int, v: int, tile: int, ncube: int,
+                 C: int) -> None:
+    """One launch of the numerator group GEMM (csrc/spatial_gemm.cuh)
+    through `group_fn`, the `spatial_group_launch` of K3's or K4's library
+    (`name`), over ncube cubes of C triples; raises if it is refused.
+    Counts the launches (`launches`), the multiply-adds the launch issues
+    over its tiles (`issued_macs`, `gemm_macs`) and those of the true
+    shapes (`useful_macs`)."""
+    _raise_on(name, group_fn(*args))
+    spatial_gemm.launches += 1
+    spatial_gemm.issued_macs += ncube * C * gemm_macs(o, v, tile)
+    spatial_gemm.useful_macs += ncube * C * useful_macs(o, v)
+
+
+spatial_gemm.launches = spatial_gemm.issued_macs = spatial_gemm.useful_macs = 0
+trace.register("spatial_gemm.launches", spatial_gemm)
+trace.register("spatial_gemm.issued_macs", spatial_gemm, "issued_macs")
+trace.register("spatial_gemm.useful_macs", spatial_gemm, "useful_macs")
+
+
 def _sorted_triples_cuda(wrapper, args, *, doing_T, doing_R, doing_CR, split) -> torch.Tensor:
     """K3's and K4's path on the card (csrc/sorted_triples.cuh, built
     into the library named after `wrapper`): one layout launch a call,
@@ -568,9 +612,10 @@ def _sorted_triples_cuda(wrapper, args, *, doing_T, doing_R, doing_CR, split) ->
         if timed:
             ev[0].record()
         for group in range(3):
-            rc = group_fn(_ptr(Lbuf), _ptr(Rbuf), _ptr(desc[0, c0:]), n * 24, ncube, C, v, Kv,
-                          Ko, Np, NNp, tile, group, clen * v**3, _ptr(scratch[group]), stream)
-            _raise_on(name, rc)
+            spatial_gemm(name, group_fn, (_ptr(Lbuf), _ptr(Rbuf), _ptr(desc[0, c0:]), n * 24,
+                                          ncube, C, v, Kv, Ko, Np, NNp, tile, group,
+                                          clen * v**3, _ptr(scratch[group]), stream),
+                         o=o, v=v, tile=tile, ncube=ncube, C=C)
             if timed:
                 ev[group + 1].record()
         rc = orbit_fn(_ptr(scratch[0, 0]), _ptr(scratch[0, 1]) if has_m else None,

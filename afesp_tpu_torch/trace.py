@@ -45,7 +45,10 @@ a graph replay adding what its capture issued), `digit_graph.calls`,
 outermost digit-GEMM calls on a card inside a graph scope, the graphs
 captured, the calls served by replaying one), `mo_slices.vvvv_chunks`
 (methods/mo_slices.py: the v_vvvv chunks a sliced transform computed;
-0 on the dense tier).
+0 on the dense tier), `spatial_gemm.launches`, `spatial_gemm.issued_macs`,
+`spatial_gemm.useful_macs` (ops/triples_spatial_cuda.py: K3's and K4's
+group GEMM launches on a card, the multiply-adds their tiles issue and
+those of the true shapes; their ratio is the GEMM's padding).
 """
 
 from __future__ import annotations

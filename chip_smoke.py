@@ -284,8 +284,12 @@ CR_KEYS = ("e_crccsd_t", "e_crccsd_tt")
 CR_F32_TOL = 5e-9
 # a CUDA kernel of K3 in a profiler trace (csrc/spatial_gemm.cuh,
 # csrc/sorted_triples.cuh)
-K3_TRACE_KERNELS = ("cube_gemm_kernel", "sorted_orbit_kernel")
+K3_TRACE_KERNELS = ("group_gemm_kernel", "sorted_orbit_kernel")
 ERI_TOL = 1e-12
+# one chunk of K4's kernels at the pentamer's shape (o = 25, v = 265:
+# cube_chunk_len gives 6 triples): sorted triples with i = j, j = k and
+# all three distinct
+PENTAMER_CHUNK = [(0, 0, 1), (3, 3, 24), (2, 7, 7), (0, 1, 2), (4, 13, 22), (9, 10, 17)]
 # generated s/t/v.dat against committed ones, both printed to 15 decimals:
 # |difference| / max(1, |value|)
 DAT_RTOL = 1e-14
@@ -516,7 +520,8 @@ def six_sum_error(got, want) -> tuple[float, float]:
 
 
 def spatial_kernel_checks(torch, dev, o: int, v: int, args=None, flags=None,
-                          label: str = "", names: tuple | None = None) -> dict:
+                          label: str = "", names: tuple | None = None,
+                          triples: list | None = None) -> dict:
     """K3, K4 and K5 against their plain versions at (o, v), all variants
     on (K3 and K5 up to nvirt 128, as their tiers run), with the kernels',
     the plain versions' and the library's times, the bounds and K3's and
@@ -524,13 +529,21 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, args=None, flags=None,
     launches; above it the kernels take 2, and the plain versions and
     the all-torch f64 tier one launch each.  The inputs are seeded random
     ones unless `args` (and the path's variant `flags`) are given; `names`
-    keeps only those kernels' rows."""
+    keeps only those kernels' rows; `triples` (sorted (i, j, k), with
+    their orbit weights) replaces the whole sorted plan, and then the
+    all-torch tier, which runs every triple, is not timed."""
     from afesp_tpu_torch.methods import triples_spatial as TS
     from afesp_tpu_torch.ops import triples_spatial_cuda as S
 
     if args is None:
         args = random_spatial_problem(torch, dev, o, v)
-    (si, sj, sk), w = TS._sorted_plan(o, dev)
+    if triples is None:
+        (si, sj, sk), w = TS._sorted_plan(o, dev)
+    else:
+        si, sj, sk = (torch.tensor([t[q] for t in triples], dtype=torch.int32, device=dev)
+                      for q in range(3))
+        w = torch.tensor([1.0 if i < j < k else 1.0 / 6.0 if i == j == k else 0.5
+                          for i, j, k in triples], dtype=torch.float64, device=dev)
     n = si.numel()
     flags = flags or dict(doing_T=True, doing_R=True, doing_CR=True)
     rows = {}
@@ -569,7 +582,8 @@ def spatial_kernel_checks(torch, dev, o: int, v: int, args=None, flags=None,
             continue
         rows[name] = held(name, lambda fn=fn: fn(*args, si, sj, sk, w, **flags),
                           lambda plain=plain: plain(*args, si, sj, sk, w, **flags))
-        rows[name].update(library_ms=cuda_ms(torch, f64_total) if small else
+        rows[name].update(library_ms=None if triples is not None else
+                          cuda_ms(torch, f64_total) if small else
                           cuda_ms(torch, f64_total, 1, warm=False),
                           bound=bound_ms(ops, in_bytes))
     # K3's and K4's split: the three group GEMMs (each in group_ms), the
@@ -2462,6 +2476,15 @@ def main() -> int:
             big = spatial_kernel_checks(torch, dev, o=o, v=v)
             info.update({n: json.dumps(r) for n, r in big.items()})
             table += list(big.items())
+    # K4 at the pentamer's shape on one chunk of its kernels
+    # (cube_chunk_len: 6 of its 2925 sorted triples), seeded random inputs
+    info = {}
+    with phase("kernels_o25_v265", info):
+        big = spatial_kernel_checks(torch, dev, o=25, v=265, triples=PENTAMER_CHUNK,
+                                    label=", one chunk of the pentamer's", names=(
+                                        "triples_tiled_spatial",))
+        info.update({n: json.dumps(r) for n, r in big.items()})
+        table += list(big.items())
     digit_gemm_phase(torch, dev)
     stream_pieces_phase(torch, dev)
 

@@ -198,11 +198,12 @@ def _six_close(got, want):
 
 # K4 also at the dimer's and the trimer's shapes (the trimer's default
 # tier), K3 at the dimer's (its default tier there); both at a ragged v
-# that is a multiple of neither 8 nor 16
+# that is a multiple of neither 8 nor 16; K3 at a v whose group axis the
+# parent's 64-wide tiles ran as 128 columns for 104
 K3_K4_CASES = [(k, o, v) for o, v in SPATIAL_SHAPES + [(4, 37)]
                for k in ("triples_fused_spatial", "triples_tiled_spatial")] + [
     ("triples_tiled_spatial", 10, 106), ("triples_tiled_spatial", 15, 159),
-    ("triples_fused_spatial", 10, 106)]
+    ("triples_fused_spatial", 10, 106), ("triples_fused_spatial", 6, 100)]
 
 
 @pytest.mark.parametrize("kernel,o,v", K3_K4_CASES)
@@ -218,6 +219,48 @@ def test_k3_k4_kernels_match_plain(kernel, o, v):
     assert fn.launches == before + 2
     assert torch.equal(got, again)  # fixed-order sums, no atomics
     _six_close(got, want)
+
+
+# sorted triples of the pentamer's shape (o = 25, v = 265): two equal
+# (i = j, j = k), all equal, and distinct
+PENTAMER_TRIPLES = [(0, 0, 1), (3, 3, 24), (2, 7, 7), (11, 24, 24), (5, 5, 5), (0, 1, 2),
+                    (4, 13, 22), (9, 10, 17)]
+
+
+def test_k4_at_the_pentamer_shape_matches_plain():
+    """K4 at the pentamer's shape on hand-picked sorted triples, all
+    variants on: within 1e-11 of its plain version, a relaunch bit for
+    bit the same; every group GEMM launch holds more than one tile for
+    each block the card keeps resident, and issues at most 1.10 times the
+    multiply-adds of the true shapes (the parent's tiles: 1.27)."""
+    dev = _card()
+    o, v = 25, 265
+    args = tuple(torch.as_tensor(x, dtype=F64, device=dev)
+                 for x in random_spatial_problem(o, v))
+    ii, jj, kk = (torch.tensor([t[q] for t in PENTAMER_TRIPLES], dtype=torch.int32,
+                               device=dev) for q in range(3))
+    w = torch.tensor([1.0 if i < j < k else 1.0 / 6.0 if i == j == k else 0.5
+                      for i, j, k in PENTAMER_TRIPLES], dtype=F64, device=dev)
+    fn = S.triples_tiled_spatial
+    before, gemm = fn.launches, S.spatial_gemm
+    counts = (gemm.launches, gemm.issued_macs, gemm.useful_macs)
+    got = fn(*args, ii, jj, kk, w, **ALL)
+    again = fn(*args, ii, jj, kk, w, **ALL)
+    want = S.triples_tiled_spatial_plain(*args, ii, jj, kk, w, **ALL)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    _six_close(got, want)
+    n = len(PENTAMER_TRIPLES)
+    clen = S.cube_chunk_len(n, v, True)
+    launches, issued, useful = (a - b for a, b in zip(
+        (gemm.launches, gemm.issued_macs, gemm.useful_macs), counts))
+    assert launches == 2 * 3 * -(-n // clen)
+    assert useful == 2 * 3 * 2 * n * S.useful_macs(o, v) and issued <= 1.10 * useful
+    Np, _, _, NNp, tile = S.tiled_tile_dims(o, v)
+    BM, BN, _ = S.TILE_CONFIGS[tile]
+    tiles = -(-Np // BN) * -(-NNp // BM) * 2 * min(clen, n - (-(-n // clen) - 1) * clen)
+    assert tiles > 2 * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 # K5 also at the dimer's shape (100 panels of one i-slab) and a ragged one

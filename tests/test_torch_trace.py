@@ -140,7 +140,19 @@ def test_a_counter_lands_in_the_innermost_open_span(recording, monkeypatch):
     assert set(calc.counts) == {"syncs", "_int_mm.launches", "digit_pair_gemm.launches",
                                 "digit_graph.calls", "digit_graph.captures",
                                 "digit_graph.replays", "mo_slices.vvvv_chunks",
-                                "work.launches"}
+                                "spatial_gemm.launches", "spatial_gemm.issued_macs",
+                                "spatial_gemm.useful_macs", "work.launches"}
+
+
+def test_the_group_gemm_counters_are_registered():
+    """K3's and K4's group GEMM launches and the multiply-adds they issue
+    and need (ops/triples_spatial_cuda.py `spatial_gemm`) are registered
+    counters, at 0 off the card."""
+    from afesp_tpu_torch.ops import triples_spatial_cuda as S
+
+    for attr in ("launches", "issued_macs", "useful_macs"):
+        assert trace._counters[f"spatial_gemm.{attr}"] == (S.spatial_gemm, attr)
+        assert getattr(S.spatial_gemm, attr) == 0
 
 
 def test_enable_and_disable_are_idempotent():

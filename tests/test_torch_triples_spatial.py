@@ -383,34 +383,47 @@ def test_chunk_cubes_match_jax(o, v):
 @pytest.mark.parametrize("o,v", TILE_SHAPES)
 def test_k4_stage1_gemm_gives_the_cubes(o, v):
     """The numerator GEMM of K3 and K4 as its tiles address it, in
-    torch: for each cube, triple and group, row kg of the concatenated K
-    axis lies in term (kg >= Kv) + (kg >= 2Kv) + (kg >= 2Kv + Ko) at row
-    kg - start of the blocks that tiled_term_offsets points at;
-    A[pq, kg] comes from Rbuf, B[kg, x] from Lbuf, and the epilogue puts
-    C[pq, x] at the group's place in the group's own cube.  The three
-    groups' cubes, summed in group order as the reduction reads them,
-    equal `_chunk_cubes`'s x and m to 1e-12 relative."""
+    torch: the tile that tiled_tile_dims picks, with its row tiles over
+    the NNp rows (rows past NNp read as zeros), its column tiles over the
+    Np columns (zeros past Np) and its BK-deep stages over the
+    concatenated K axis (zeros past K); row kg lies in term (kg >= Kv) +
+    (kg >= 2Kv) + (kg >= 2Kv + Ko) at row kg - start of the blocks that
+    tiled_term_offsets points at; A[pq, kg] comes from Rbuf, B[kg, x] from
+    Lbuf, and the epilogue puts C[pq, x] (pq < v^2, x < v) at the group's
+    place in the group's own cube.  The three groups' cubes, summed in
+    group order as the reduction reads them, equal `_chunk_cubes`'s x and
+    m to 1e-12 relative."""
     _, ops, (ii, jj, kk), _ = _tile_problem(o, v)
     Np, Kv, Ko, NNp, tile = K.tiled_tile_dims(o, v)
     assert Np % 8 == 0 and Kv % 2 == 0 and Ko % 2 == 0 and NNp % 8 == 0 and NNp >= v * v
-    assert 0 <= tile < len(K.TILE_CONFIGS)
+    BM, BN, BK = K.TILE_CONFIGS[tile]
+    Ktot = 2 * Kv + 2 * Ko
+    up = lambda x, b: -(-x // b) * b
+    Mp, Npad, Kp = up(NNp, BM), up(Np, BN), up(Ktot, BK)
     Lbuf, Rbuf = K.tiled_operands(ops, True)
     desc = K.tiled_term_offsets(ii, jj, kk, o, v, ("x", "m"))
     assert desc.shape == (2, len(ii), 3, 8) and desc.dtype == torch.int64
     assert not (desc % 2).any()  # every 16-byte copy is aligned
     want = K._chunk_cubes(ops, ii, jj, kk, has_z=False, has_y=False, has_m=True)
-    kg = torch.arange(2 * Kv + 2 * Ko)
+    kg = torch.arange(Kp)
+    in_k = kg < Ktot
+    kg = kg.clamp(max=Ktot - 1)
     term = (kg >= Kv).long() + (kg >= 2 * Kv).long() + (kg >= 2 * Kv + Ko).long()
     start = torch.where(term < 2, term * Kv, 2 * Kv + (term - 2) * Ko)
     ld = torch.where(term < 2, Kv, Ko)
-    m, n = torch.arange(NNp), torch.arange(Np)
+    m, n = torch.arange(Mp), torch.arange(Npad)
+    a_ok = in_k[None, :] & (m < NNp)[:, None]
+    b_ok = in_k[:, None] & (n < Np)[None, :]
+    m, n = m.clamp(max=NNp - 1), n.clamp(max=Np - 1)
     for q, cube in enumerate(("x", "m")):
         parts = torch.empty((3, *want[cube].shape), dtype=F64)
         for p in range(len(ii)):
             for g in range(3):
                 loff, roff = desc[q, p, g, 0::2], desc[q, p, g, 1::2]
-                A = Rbuf[roff[term][None, :] + (kg - start)[None, :] * NNp + m[:, None]]
-                B = Lbuf[loff[term][:, None] + n[None, :] * ld[:, None] + (kg - start)[:, None]]
+                A = torch.where(a_ok, Rbuf[roff[term][None, :] + (kg - start)[None, :] * NNp
+                                           + m[:, None]], 0.0)
+                B = torch.where(b_ok, Lbuf[loff[term][:, None] + n[None, :] * ld[:, None]
+                                           + (kg - start)[:, None]], 0.0)
                 C = (A @ B)[: v * v, :v]  # rows (p, q) of the two other axes, cols the group's
                 if g == 0:
                     parts[g, p] = C.T.reshape(v, v, v)
@@ -419,6 +432,150 @@ def test_k4_stage1_gemm_gives_the_cubes(o, v):
                 else:
                     parts[g, p] = C.reshape(v, v, v)
         _rel_close((parts[0] + parts[1]) + parts[2], want[cube])
+
+
+@pytest.mark.parametrize("o,v", [(25, 265), (15, 159), (10, 106), (6, 100), (5, 53), (5, 37),
+                                 (4, 37), (4, 130), (6, 10), (3, 8)])
+def test_group_gemm_tile_fits_the_shape(o, v):
+    """The tile rule of the group GEMM (tiled_tile_dims): the tile that
+    issues the fewest multiply-adds (gemm_macs: the tiles over the padded
+    rows and columns, the 8-deep steps over K) of TILE_CONFIGS; issued
+    over useful (useful_macs: v^2 rows, v columns, K = 2v + 2o) is at most
+    1.10 at the trimer's v = 159 and the pentamer's v = 265, below 1.34
+    at the dimer's v = 106, and at every shape the tiles cover the padded
+    rows NNp, columns Np and depth K."""
+    Np, Kv, Ko, NNp, tile = K.tiled_tile_dims(o, v)
+    macs = [K.gemm_macs(o, v, t) for t in range(len(K.TILE_CONFIGS))]
+    assert macs[tile] == min(macs) and tile == macs.index(min(macs))
+    BM, BN, BK = K.TILE_CONFIGS[tile]
+    WARPS_M, MT, WARPS_N = K.TILE_WARPS[tile]
+    assert BM == 16 * MT * WARPS_M and BN % 8 == 0 and BN // 8 >= WARPS_N and BK % 8 == 0
+    up = lambda x, b: -(-x // b) * b
+    assert up(NNp, BM) >= NNp >= v * v and up(Np, BN) >= Np >= v
+    assert BK % K.GEMM_KSTEP == 0 and up(2 * Kv + 2 * Ko, BK) >= 2 * Kv + 2 * Ko >= 2 * v + 2 * o
+    assert macs[tile] == up(NNp, BM) * up(Np, BN) * up(2 * Kv + 2 * Ko, K.GEMM_KSTEP)
+    ratio = macs[tile] / K.useful_macs(o, v)
+    if v in (159, 265):
+        assert ratio <= 1.10
+    if v == 106:
+        assert ratio < 1.34
+
+
+def _walk(ntiles: int, blocks: int, nk: int):
+    """group_gemm_kernel's persistent walk: block b of `blocks` takes
+    tiles b, b + blocks, ...; its stages run tile after tile, nk a tile.
+    Yields (block, tile, k block) in the order each block loads them."""
+    for b in range(blocks):
+        mine = (ntiles - 1 - b) // blocks + 1 if b < ntiles else 0
+        for it in range(mine * nk):
+            j, kb = divmod(it, nk)
+            yield b, b + j * blocks, kb
+
+
+@pytest.mark.parametrize("tile", range(len(K.TILE_CONFIGS)))
+def test_group_gemm_walk_takes_every_tile_once(tile):
+    """A group GEMM launch's tiles as the persistent kernel walks them
+    (csrc/spatial_gemm.cuh Grid::at and group_gemm_kernel), at the
+    pentamer's shape with a chunk of 6 triples and both cubes, for the
+    grid launch_group picks (one block an SM, 132 SMs) and others: each
+    (cube, triple, row tile, column tile) once, every stage of it once
+    and in K order, the column tile fastest, so the blocks in flight at
+    once (consecutive tiles) read the same right-hand rows."""
+    o, v, C, ncube = 25, 265, 6, 2
+    Np, Kv, Ko, NNp, _ = K.tiled_tile_dims(o, v)
+    BM, BN, BK = K.TILE_CONFIGS[tile]
+    ntn, ntm = -(-Np // BN), -(-NNp // BM)
+    ntiles = ntn * ntm * ncube * C
+    nk = -(-(2 * Kv + 2 * Ko) // BK)
+
+    def at(t):  # Grid::at
+        rest, nt = divmod(t, ntn)
+        z, mt = divmod(rest, ntm)
+        q, p = divmod(z, C)
+        return q, p, mt * BM, nt * BN
+
+    assert [at(t) for t in range(ntn)] == [(0, 0, 0, n * BN) for n in range(ntn)]
+    for blocks in (132, 7, ntiles + 5):
+        seen = {}
+        for b, t, kb in _walk(ntiles, blocks, nk):
+            assert t % blocks == b and 0 <= t < ntiles
+            seen.setdefault(t, []).append(kb)
+        assert sorted(seen) == list(range(ntiles))
+        assert all(kbs == list(range(nk)) for kbs in seen.values())
+    q, p, m0, n0 = zip(*(at(t) for t in range(ntiles)))
+    assert max(q) == ncube - 1 and max(p) == C - 1
+    assert max(m0) < NNp <= max(m0) + BM and max(n0) < Np <= max(n0) + BN
+    assert len(set(zip(q, p, m0, n0))) == ntiles
+
+
+def _mma(d, a, b, kdepth):
+    """mma.sync m16n8k{kdepth} .f64 on one warp's registers, by PTX's
+    fragment layouts: a (32, kdepth / 2), lane (g, t)'s element i is
+    A[g + 8 (i & 1)][t + 4 (i >> 1)]; b (32, kdepth / 4), B[t + 4 i][g];
+    d (32, 4) += D[g + 8 (q >> 1)][2 t + (q & 1)]."""
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    A = torch.zeros(16, kdepth, dtype=F64)
+    B = torch.zeros(kdepth, 8, dtype=F64)
+    for i in range(kdepth // 2):
+        A[g + 8 * (i & 1), t + 4 * (i >> 1)] = a[:, i]
+    for i in range(kdepth // 4):
+        B[t + 4 * i, g] = b[:, i]
+    D = A @ B
+    for q in range(4):
+        d[:, q] += D[g + 8 * (q >> 1), 2 * t + (q & 1)]
+
+
+@pytest.mark.parametrize("tile", range(len(K.TILE_CONFIGS)))
+def test_group_gemm_fragments_give_the_tile_product(tile):
+    """One stage of a block tile as the group GEMM's warps read their
+    fragments and multiply (csrc/spatial_gemm.cuh mma_stage, store_tile),
+    in torch: warp row r covers rows wm = 16 MT r .., the WARPS_N warp
+    columns share the tile's n8 tiles in order, NT0 = ceil(N8 / WARPS_N)
+    each to the first ones and NT0 - 1 to the rest (TILE_WARPS); lane
+    (g, t) reads As[kc + 2t + h][wm + 16 mt + 2g], [.. + 1] (h = 0, 1)
+    and Bs[wn + 8 nt + g][kc + 2t], [.. + 1] as 16-byte pairs, runs two
+    m16n8k4 MMAs (step h) over each 8-deep step kc, and its accumulator
+    element (mt, nt, 2h + e) is C[wm + 16 mt + 2g + h][wn + 8 nt + 2t +
+    e].  Over the block's warps every element of the BM x BN tile is
+    produced once and equals As^T Bs^T over the stage to 1e-14
+    relative."""
+    BM, BN, BK = K.TILE_CONFIGS[tile]
+    WARPS_M, MT, WARPS_N = K.TILE_WARPS[tile]
+    N8 = BN // 8
+    NT0 = -(-N8 // WARPS_N)
+    wide = N8 - (NT0 - 1) * WARPS_N  # warp columns of NT0 n8 tiles
+    cols = [NT0 if c < wide else NT0 - 1 for c in range(WARPS_N)]
+    assert BM == 16 * MT * WARPS_M and BN % 8 == 0 and sum(cols) == N8 and min(cols) >= 1
+    rng = np.random.default_rng(tile)
+    As = torch.as_tensor(rng.standard_normal((BK, BM)))
+    Bs = torch.as_tensor(rng.standard_normal((BN, BK)))
+    C = torch.zeros(BM, BN, dtype=F64)
+    hits = torch.zeros(BM, BN, dtype=torch.long)
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    for warp in range(WARPS_M * WARPS_N):
+        wm, wc = (warp % WARPS_M) * 16 * MT, warp // WARPS_M
+        wn, NT = 8 * sum(cols[:wc]), cols[wc]
+        acc = torch.zeros(MT, NT, 32, 4, dtype=F64)
+        for kc in range(0, BK, 8):
+            a = [[torch.stack([As[kc + 2 * t + h, wm + 16 * mt + 2 * g + x] for x in (0, 1)], 1)
+                  for h in (0, 1)] for mt in range(MT)]
+            b = [torch.stack([Bs[wn + 8 * nt + g, kc + 2 * t + x] for x in (0, 1)], 1)
+                 for nt in range(NT)]
+            for nt in range(NT):
+                for h in (0, 1):
+                    for mt in range(MT):
+                        _mma(acc[mt, nt], a[mt][h], b[nt][:, h:h + 1], 4)
+        for mt in range(MT):
+            for nt in range(NT):
+                for h in (0, 1):
+                    for e in (0, 1):
+                        m, n = wm + 16 * mt + 2 * g + h, wn + 8 * nt + 2 * t + e
+                        C[m, n] += acc[mt, nt, :, 2 * h + e]
+                        hits[m, n] += 1
+    assert int(hits.min()) == int(hits.max()) == 1
+    _rel_close(C, As.T @ Bs.T, 1e-14)
 
 
 @pytest.mark.parametrize("total,v,has_m", [(35, 53, True), (220, 106, True), (220, 106, False),
