@@ -6,9 +6,9 @@ reference parser (system.f90:81-167): a single `&elsinput ... /`
 namelist with the eleven calc_type strings mapped onto (calc_type enum,
 restricted, triples-variant flags).
 
-In the port every contraction runs in f64 on the device, so the
-`ccsd_precision` values "hybrid", "pallas" and "fused" are accepted for
-input compatibility and all run f64 CCSD (see `methods/ccsd_spinorb.py`).
+`ccsd_precision` "f64" runs every contraction in f64; "hybrid", "pallas"
+and "fused" run the digit-GEMM (exact int8) CCSD of either formulation,
+and "pallas" and "fused" also name the restricted (T) kernel tier.
 """
 
 from __future__ import annotations
@@ -95,8 +95,8 @@ class Config:
     # New (no reference counterpart — upstream MPI is an unticked TODO,
     # README.md:35): device-mesh width for the multi-chip CC/triples
     # paths of the JAX package.  0 (default) and 1 = single device, -1 =
-    # every visible device; the port's driver refuses a width of 2 or
-    # more (multi-device is not ported yet).
+    # every visible device; a width of 2 or more runs the CC and (T)
+    # stages on a mesh of that many devices (`parallel/`).
     mesh_devices: int = 0
 
     # Raw text of the input file (echoed into the output, integrals.f90:240-249)

@@ -7,17 +7,8 @@ trace, `_final_breakdown`).  Dispatch on (restricted, calc_type):
   restricted:   RHF -> MP2_spatial -> CCSD_spatial -> (T)_spatial family
   spin-orbital: RHF -> MP2_spatial -> CCSD_spinorb -> (T)_spinorb
 
-The tier is chosen once a calculation, after the read-in
-(`methods/mp2.calc_tier`), and handed to RHF and MP2.  Under
-AFESP_FORCE_STREAM=1, or on a card where the dense path's n^4 tensors
-would not fit at "hybrid", the restricted chain runs the streaming tier
-(the MP2 stage hands CCSD its slices and vvvv limbs, no dense MO
-tensor); where they would not fit at "f64", the sliced f64 tier (RHF
-from the pair-row table, the MP2 stage hands CCSD f64 slices).  The
-spin-orbital CCSD needs the dense tensor and is refused on both, with
-the JAX driver's ValueError under the variable and one that names the
-memory rule otherwise.
-
+The memory tier (`methods/tiers.py`) is chosen once a calculation,
+after the read-in, and handed to RHF, MP2 and CCSD; the output comes
 with the reference's timing lines and final energy-breakdown table
 (labels are scraped by the binding-curve wrapper, so they are API).
 
@@ -62,6 +53,7 @@ from .io import dat
 from .io.report import Reporter
 from .methods import hf as hf_mod
 from .methods import mp2 as mp2_mod
+from .methods import tiers
 from .methods.ccsd_spatial import CCSDResult, do_ccsd_spatial
 from .methods.ccsd_spinorb import CCSDSpinorbResult, do_ccsd_spinorb
 from .methods.triples_spatial import TriplesResult, do_ccsd_t_spatial
@@ -178,7 +170,7 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device) -
             mesh = pmesh.default_mesh(want, dev)
             rep.write(f" Using a {want}-device mesh for CC stages.")
 
-    tier = mp2_mod.calc_tier(sys_.nbasis, cfg, dev)
+    tier = tiers.calc_tier(sys_.nbasis, cfg, dev)
     with trace.span("Restricted Hartree-Fock"):
         hf = hf_mod.do_rhf(sys_, ints, cfg, rep, workdir, device=dev, tier=tier)
     res.hf = hf
@@ -196,8 +188,9 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device) -
             t_cc = time.perf_counter()
             with trace.span("CCSD"):
                 cc = do_ccsd_spatial(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,
-                                     slices=mp2.slices, vvvv_B=mp2.vvvv_B, mesh=mesh)
-            mp2.vvvv_B = None  # the limbs' last reader was the CC stage
+                                     slices=mp2.slices, vvvv_B=mp2.vvvv_B, mesh=mesh,
+                                     tier=tier)
+            tier.drop_limbs(mp2)
             rep.stage_time(
                 "Time taken for restricted CCSD:", time.perf_counter() - t_cc
             )
@@ -211,23 +204,7 @@ def _run(workdir, rep: Reporter | None, cfg: Config | None, dev: torch.device) -
                 res.triples = tr
                 res.e_highest = tr.e_highest
         elif cfg.wants_ccsd:
-            if mp2.eri_mo is None and mp2_mod._force_stream():
-                raise ValueError(
-                    "spin-orbital CCSD needs the dense MO tensor; the"
-                    f" streaming tier (nbasis >= {mp2_mod.STREAM_NBASIS})"
-                    " currently serves the spatial formulation only —"
-                    " use a *_spatial calc_type at this scale"
-                )
-            if mp2.eri_mo is None:
-                raise ValueError(
-                    "spin-orbital CCSD needs the dense MO tensor; the dense path's"
-                    f" {mp2_mod.dense_need_bytes(sys_.nbasis, cfg.ccsd_precision):.3e}"
-                    f" bytes at nbasis {sys_.nbasis} and ccsd_precision"
-                    f" {cfg.ccsd_precision!r}, with {mp2_mod.TIER_HEADROOM_BYTES:.0e} bytes"
-                    " of headroom, exceed the card's memory (methods/mp2.choose_tier),"
-                    f" so the {tier} tier ran, which serves the spatial formulation only"
-                    " — use a *_spatial calc_type at this scale"
-                )
+            tier.check_spinorb(sys_.nbasis, cfg)
             t_cc = time.perf_counter()
             with trace.span("CCSD"):
                 cc = do_ccsd_spinorb(sys_, mp2.eri_mo, cfg, hf, rep, workdir, device=dev,

@@ -12,8 +12,8 @@ run directory holds the binary packed `eri.npy`, it is read in place of
 `eri.dat`, as the JAX package does (`afesp_tpu/io/dat.py:441-456`).
 
 The arrays read are host numpy, the interchange format.  The ERIs cross
-to a device once, packed, and are unpacked there by one gather
-(`IntStore.eri_on_device`); the dense host tensor is built only for a
+to a device once, packed; the device forms made from it are the memory
+tier's (`methods/tiers.py`), and the dense host tensor is built only for a
 run on the CPU (`read_integrals(..., host_dense=True)`).  Unlike the JAX
 reader this one writes no cache file next to its inputs (nor anywhere
 else): `eri.dat` is parsed anew on every run.
@@ -47,9 +47,9 @@ class System:
 
 @dataclasses.dataclass
 class IntStore:
-    """AO integral store (integrals.f90:24-34): host arrays, one cached
-    device copy of the dense ERI (`eri_on_device`) and, on the
-    streaming tier, one of the packed store (`packed_on_device`)."""
+    """AO integral store (integrals.f90:24-34): host arrays, and the ERI's
+    device forms, each cached until its `free_device_*`; which forms a
+    calculation makes, and when each goes, is `methods/tiers.py`'s."""
 
     e_nuc: float = 0.0
     nbasis: int = 0
@@ -60,8 +60,8 @@ class IntStore:
     eri: np.ndarray | None = None  # dense (n,n,n,n) chemist (ij|kl)
     eri_packed: np.ndarray | None = None  # 8-fold store, reference eri_ind order
     _eri_dev: torch.Tensor | None = None  # the one device copy (eri_on_device)
-    _packed_dev: torch.Tensor | None = None  # the streaming tier's (packed_on_device)
-    # the sliced f64 tier's row table (rows_on_device): an attribute, not a
+    _packed_dev: torch.Tensor | None = None  # the packed store (packed_on_device)
+    # the f64 pair-row table (rows_on_device): an attribute, not a
     # field, so that the fields stay the JAX package's IntStore's
     _rows_dev = None
 
@@ -94,34 +94,25 @@ class IntStore:
         return self._eri_dev
 
     def free_device_eri(self) -> None:
-        """Drop the cached device ERI (after the MP2 transform nothing
-        reads it; at 116 bf this frees 1.45 GB for the CC stages)."""
+        """Drop the cached device ERI."""
         self._eri_dev = None
 
     def packed_on_device(self, device: str | torch.device) -> torch.Tensor:
         """The 8-fold packed store on `device`, with no unpack, made once
-        and cached (`afesp_tpu/io/dat.py:94`): the only resident AO-ERI
-        form of the streaming tier, where the dense tensor (7.3 GB at
-        174 bf) is never built.  The stream Fock build and the sliced
-        MO transform (`methods/mo_slices.py`) both read it."""
-        dev = torch.device(device)
-        if self._packed_dev is None or self._packed_dev.device != dev:
-            self._packed_dev = self._upload_packed(dev)
+        and cached (`afesp_tpu/io/dat.py:94`)."""
+        self._packed_dev = self._upload_packed(torch.device(device))
         return self._packed_dev
 
     def free_device_packed(self) -> None:
-        """Drop the cached device packed store (the sliced transform
-        frees it once its row table supersedes it)."""
+        """Drop the cached device packed store."""
         self._packed_dev = None
 
     def rows_on_device(self, device: str | torch.device) -> torch.Tensor:
-        """The f64 pair-row table of the sliced f64 tier on `device`,
-        made once a calculation and cached: (npair, n^2) with
-        rows[pair(i,j), k*n + l] = (ij|kl), expanded on the device from
-        the one upload of the packed store (`expand_packed_rows`), which
-        is not kept.  RHF's Fock builds and the sliced f64 transform
-        both read it; the dense tensor is never made (28.4 GB at 290 bf,
-        against 56.6 GB dense)."""
+        """The f64 pair-row table on `device`, made once and cached:
+        (npair, n^2) with rows[pair(i,j), k*n + l] = (ij|kl), expanded on
+        the device from the one upload of the packed store
+        (`expand_packed_rows`), which is not kept; 28.4 GB at 290 bf,
+        against 56.6 GB dense."""
         dev = torch.device(device)
         if self._rows_dev is None or self._rows_dev.device != dev:
             if dev.type == "cuda":
@@ -129,15 +120,11 @@ class IntStore:
                 # calculation freed given back, so that none splits the
                 # card for it and for the transform's v_vvvv
                 torch.cuda.empty_cache()
-            packed = self._packed_dev
-            if packed is None or packed.device != dev:
-                packed = self._upload_packed(dev)
-            self._rows_dev = expand_packed_rows(packed, self.nbasis)
+            self._rows_dev = expand_packed_rows(self._upload_packed(dev), self.nbasis)
         return self._rows_dev
 
     def free_device_rows(self) -> None:
-        """Drop the cached row table (the sliced f64 transform frees it
-        once its first half has read it)."""
+        """Drop the cached row table."""
         self._rows_dev = None
 
 

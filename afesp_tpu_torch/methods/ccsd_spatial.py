@@ -22,15 +22,8 @@ slice-sized operand is an exact digit GEMM (`ops/exact_gemm`), the
 loop-constant slice sides digitized once per solve (`spatial_presplit`,
 through the solver's precompute hook); `precision_used` says which ran.
 
-On the streaming tier (`eri_mo` None) the slices come from the sliced
-transform and v_vvvv exists only as per-chunk-scaled int8 limbs
-(`vvvv_B`): the solve contracts c_oovv against them, the CR-CC chain's
-one v_vvvv term is computed from them once the solve ends
-(`cr_vvvv_term`), and ccsd_precision "f64" is refused, as in the JAX
-package.  On the sliced f64 tier (`eri_mo` None, f64 slices that carry
-v_vvvv, no limbs) the solve is the dense path's, on those slices; the
-CR term is the dense path's contraction, made once the solve ends, and
-v_vvvv is then dropped, so that the (T) stage runs without it.
+Which MO integral forms the solve reads, and which it drops after, are
+the memory tier's (`methods/tiers.py`).
 
 Under a device mesh (`mesh`, JAX `:634-662,745-767`) the vvvv term of
 every route is split over the mesh (`parallel/ccsd_shard`): the dense
@@ -77,8 +70,7 @@ class Slices:
     v_vvov: torch.Tensor  # (v,v,o,v)
     v_oovo: torch.Tensor  # (o,o,v,o)
     v_oooo: torch.Tensor  # (o,o,o,o)
-    v_vvvv: torch.Tensor | None  # (v,v,v,v); None on the streaming tier, and on
-    # the sliced f64 tier once its CCSD solve ends
+    v_vvvv: torch.Tensor | None  # (v,v,v,v); None on the sliced tiers after CCSD
 
 
 @dataclasses.dataclass
@@ -100,9 +92,8 @@ class CCSDResult:
     # the CCSD arithmetic that ran: "f64", or "hybrid" (the digit GEMMs)
     precision_used: str = "f64"
     # sliced tiers only: the CR chain's one v_vvvv contraction
-    # es("ecba,ie->ciab", v_vvvv, t1) (ccsd.f90:2513), computed when the
-    # solve ends, from the digit limbs on the streaming tier
-    # (`_cr_vvvv_term_from_B`), from the f64 v_vvvv on the sliced f64 tier
+    # es("ecba,ie->ciab", v_vvvv, t1) (ccsd.f90:2513), made by the memory
+    # tier when the solve ends (`methods/tiers.py`)
     cr_vvvv_term: torch.Tensor | None = None
 
 
@@ -470,13 +461,12 @@ def do_ccsd_spatial(
     slices: Slices | None = None,
     vvvv_B=None,
     mesh=None,
+    tier=None,
 ) -> CCSDResult:
-    """Restricted CCSD (do_ccsd_spatial, ccsd.f90:279-402) on the dense
-    MO tensor `eri_mo`, or, with `eri_mo` None, on the streaming tier's
-    `slices` with v_vvvv as its digit limbs `vvvv_B`, or on the sliced
-    f64 tier's `slices` (v_vvvv among them, no limbs); with `mesh`
-    (`parallel.mesh.Mesh`, its first entry `device`) the vvvv term is
-    split over it (module docstring)."""
+    """Restricted CCSD (do_ccsd_spatial, ccsd.f90:279-402) on MP2's MO
+    integrals as the memory `tier` reads them (`methods/tiers.py`); with
+    `mesh` (`parallel.mesh.Mesh`, its first entry `device`) the vvvv
+    term is split over it."""
     dev = default_device(device)
     rep = rep or Reporter()
     rep.section("CCSD")
@@ -488,27 +478,10 @@ def do_ccsd_spatial(
 
     nocc = sys_.nocc
     levels = torch.as_tensor(hf.levels, dtype=F64, device=dev)
-    # sliced tiers: the streaming tier's slices with the vvvv limbs
-    # (`external`), or the sliced f64 tier's slices that carry v_vvvv
-    sliced_f64 = eri_mo is None and vvvv_B is None and slices is not None \
-        and slices.v_vvvv is not None
-    external = eri_mo is None and not sliced_f64
-    if sliced_f64:
-        v = slices
-        D_ia, D_ijab, t1, t2, e0, r0 = spatial_cc_init_slices(v, levels, nocc)
-    elif external:
-        if slices is None or vvvv_B is None:
-            raise AssertionError("the streaming tier needs the slices and the vvvv limbs")
-        if cfg.ccsd_precision not in ("hybrid", "pallas", "fused"):
-            raise AssertionError(
-                "the streaming-slices tier stores v_vvvv as digit limbs; "
-                "all-f64 ccsd_precision is not available above the dense cutoff"
-            )
-        v = slices
-        D_ia, D_ijab, t1, t2, e0, r0 = spatial_cc_init_slices(v, levels, nocc)
-    else:
-        eri_mo = eri_mo.to(device=dev, dtype=F64)
-        v, D_ia, D_ijab, t1, t2, e0, r0 = spatial_cc_init(eri_mo, levels, nocc)
+    from .tiers import calc_tier
+
+    tier = tier or calc_tier(sys_.nbasis, cfg, dev)
+    v, D_ia, D_ijab, t1, t2, e0, r0 = tier.cc_init(eri_mo, slices, vvvv_B, cfg, levels, nocc)
 
     rep.write(" Forming initial amplitude guesses...")
     amp_in = Path(workdir) / "amplitudes_in.npz"
@@ -523,7 +496,6 @@ def do_ccsd_spatial(
     # "pallas" and "fused" change only the triples tier; the CC solve
     # runs the hybrid digit-GEMM iteration for all three (JAX `:618-623`)
     vvvv_split = cfg.ccsd_precision in ("hybrid", "pallas", "fused")
-    solver = ccsd_spatial_solver_ext if external else get_spatial_solver(vvvv_split=vvvv_split)
 
     rep.write(f" Time taken: {time.perf_counter() - t_stage:8.6f} s")
     rep.write("")
@@ -536,20 +508,7 @@ def do_ccsd_spatial(
     state = init_cc_state(t1, t2, cfg.ccsd_diis_n_errmat)
     args = (state, v, D_ia, D_ijab, v.v_oovv, energy, cfg.ccsd_e_tol, cfg.ccsd_t_tol)
     loop = dict(nerr=cfg.ccsd_diis_n_errmat, maxiter=cfg.ccsd_maxiter, on_iteration=rep.cc_row)
-    if mesh is not None and external:
-        from ..parallel.ccsd_shard import ccsd_solve_sharded_ext, shard_vvvv_limbs
-
-        # the CR term below reads the same split limbs as the solve
-        vvvv_B = shard_vvvv_limbs(mesh, vvvv_B)
-        state, energies, converged = ccsd_solve_sharded_ext(mesh, solver, *args, vvvv_B, **loop)
-    elif mesh is not None:
-        from ..parallel.ccsd_shard import ccsd_solve_sharded
-
-        state, energies, converged = ccsd_solve_sharded(mesh, solver, *args, **loop)
-    elif external:
-        state, energies, converged = solver(*args, vvvv_B, **loop)
-    else:
-        state, energies, converged = solver(*args, **loop)
+    state, energies, converged, vvvv_B = tier.cc_solve(args, loop, vvvv_B, mesh, vvvv_split)
     if energies:
         energy = energies[-1]
     if converged:
@@ -581,20 +540,7 @@ def do_ccsd_spatial(
                 " CCSD result might be unreliable!"
             )
 
-    cr_term = None
-    if external and cfg.ccsd_t_comp_renorm:
-        # the CR chain's only v_vvvv contraction, from the limbs while
-        # they are at hand (JAX `:738-760`)
-        cr_term = _cr_vvvv_term_from_B(t1_out, vvvv_B, nv=sys_.nvirt)
-    if sliced_f64:
-        # the dense path's CR contraction es("ecba,ie->ciab", v_vvvv, t1)
-        # (`triples_spatial.cr_intermediates`), made before v_vvvv goes, as
-        # one GEMM over v_vvvv's (e, cba) matricisation: the einsum would
-        # copy v_vvvv first
-        if cfg.ccsd_t_comp_renorm:
-            nv = sys_.nvirt
-            cr_term = (t1_out @ v.v_vvvv.view(nv, -1)).view(nocc, nv, nv, nv).permute(1, 0, 3, 2)
-        v.v_vvvv = None
+    cr_term = tier.cr_term(t1_out, v, vvvv_B, cfg)
 
     return CCSDResult(
         e_ccsd=energy,

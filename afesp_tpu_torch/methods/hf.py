@@ -14,22 +14,13 @@ trajectories match the reference to roundoff:
 
 The eigensolve and DIIS stay in host LAPACK/numpy as in the JAX host
 loop (at the reference's scale SCF is latency-bound); only the O(n^4)
-Fock build runs on the device, against the one device copy of the ERI
-that MP2 shares (`IntStore.eri_on_device`).  Each iteration's host work
+Fock build runs on the device, from the memory tier's AO-integral form
+(`methods/tiers.py`), each the span `rhf.fock`.  Each iteration's host work
 (the DIIS step of the last Fock build, then F', eigh, density and
 energy) is the span `rhf.host` (`trace.py`).
 
-On the sliced f64 tier (`mp2.calc_tier`: "f64" above the dense path's
-memory rule, a departure from the JAX package) the dense tensor is never
-built: each Fock build reads the f64 pair-row table
-(`IntStore.rows_on_device`, which the sliced transform then consumes),
-J as one GEMV and K as one batched GEMV over the table's rows
-(`fock_build_rows`), in f64.  Each device Fock build, on every tier, is
-the span `rhf.fock`.
-
-The streaming tier (`afesp_tpu/methods/hf.py:143-413,477-549`), taken
-under `AFESP_FORCE_STREAM=1` (or by the memory rule at "hybrid") at
-nbasis >= `_TPU_FOCK_NBASIS`, as in the JAX package off a TPU: the J
+The streaming tier's build (`afesp_tpu/methods/hf.py:143-413,477-549`),
+as the row table's (`fock_build_rows`), makes no dense tensor: the J
 and K matricisations are gathered from the packed store on the device
 and digitized once (`_fock_stream_consts`), every Fock build is two
 exact digit GEMVs (`_fock_build_stream`), and a device prelude
@@ -61,10 +52,6 @@ from ..ops.cc_step import gauss_solve
 from ..ops.exact_gemm import digitize_A, exact_gemm
 from ..ops.packed_eri import pair_index
 
-# Basis size from which the JAX package builds the Fock matrix on the
-# device (`afesp_tpu/methods/hf.py:56`); off a TPU it does so only on the
-# streaming tier, under AFESP_FORCE_STREAM=1, and so does the port.
-_TPU_FOCK_NBASIS = 100
 # purification steps run between two readbacks of their stop test
 _PM_BLOCK = 8
 
@@ -355,16 +342,6 @@ def symmetric_orthogonaliser_np(S: np.ndarray) -> np.ndarray:
     return (U / np.sqrt(s)) @ U.T
 
 
-def _from_upper(fp: torch.Tensor, iu_h, n: int) -> np.ndarray:
-    """The symmetric host matrix of a packed upper triangle."""
-    fp = fp.to(F64).cpu().numpy()
-    trace.synced()
-    F = np.empty((n, n))
-    F[iu_h] = fp
-    F.T[iu_h] = fp
-    return F
-
-
 def do_rhf(
     sys_: dat.System,
     ints: dat.IntStore,
@@ -372,10 +349,10 @@ def do_rhf(
     rep: Reporter | None = None,
     workdir: str | Path = ".",
     device: str | torch.device | None = None,
-    tier: str | None = None,
+    tier=None,
 ) -> HFResult:
-    """RHF on `tier` ("dense", "stream" or "sliced"; None:
-    `mp2.calc_tier`)."""
+    """RHF, its Fock builds and starting guess the memory tier's
+    (`methods/tiers.py`; None: the calculation's)."""
     dev = default_device(device)
     rep = rep or Reporter()
     rep.section("Restricted Hartree-Fock")
@@ -387,52 +364,17 @@ def do_rhf(
     S = ints.ovlp
     H = ints.core_hamil
     H_dev = torch.as_tensor(H, dtype=F64, device=dev)
-    if tier is None:
-        from .mp2 import calc_tier
+    from .tiers import calc_tier
 
-        tier = calc_tier(n, cfg, dev)
-    has_eri = ints.eri is not None or ints.eri_packed is not None
-    stream = tier == "stream" and n >= _TPU_FOCK_NBASIS and has_eri
-    sliced = tier == "sliced" and has_eri
-    if sliced or stream:
-        tk_h, tl_h = np.tril_indices(n)
-        tk = torch.as_tensor(tk_h, device=dev)
-        tl = torch.as_tensor(tl_h, device=dev)
-    if sliced:
-        # the pair-row table: no dense tensor is built
-        rows = ints.rows_on_device(dev)
-    elif stream:
-        # packed-resident tier: the J/K consts are gathered and digitized
-        # from the packed store; no dense tensor is built
-        fock_consts = _fock_stream_consts(ints.packed_on_device(dev), tk, tl, n=n)
-        iu_h = np.triu_indices(n)
-        iu = (torch.as_tensor(iu_h[0], device=dev), torch.as_tensor(iu_h[1], device=dev))
-    else:
-        eri_dev = ints.eri_on_device(dev)
+    tier = tier or calc_tier(n, cfg, dev)
+    guess, build = tier.rhf_fock(ints, H_dev)
     X = symmetric_orthogonaliser_np(S)
 
-    prelude_guess = False
     if cfg.scf_read_guess:
         rep.write(" Reading previous AO Fock matrix as guess...")
         F = dat.read_scf_guess(Path(workdir) / "guess_in.dat", n)
-    elif stream:
-        # the device prelude converges the far-from-convergence phase;
-        # the host loop below polishes to the els.in tolerances.  A DIIS-
-        # off config still gets a 2-slot ring (JAX `:517-549`)
-        as_dev = lambda a: torch.as_tensor(a, dtype=F64, device=dev)
-        fp, pre_iters = _scf_prelude_device(
-            H_dev, as_dev(S), as_dev(X), fock_consts, iu, tk, tl, nocc=nocc,
-            nerr=max(cfg.scf_diis_n_errmat, 2), maxiter=min(cfg.scf_maxiter, 40),
-        )
-        F = _from_upper(fp, iu_h, n)
-        if not np.isfinite(F).all():  # diverged prelude: core guess
-            F = H.copy()
-        else:
-            prelude_guess = True
-            rep.write(f" Device SCF prelude: {pre_iters} iterations.")
     else:
-        # Core-Hamiltonian guess (hf.f90:78-81)
-        F = H.copy()
+        F = guess(H, S, X, cfg, nocc, rep) if guess else H.copy()  # hf.f90:78-81
 
     diis = _DiisHost(cfg.scf_diis_n_errmat, (n, n))
 
@@ -481,18 +423,7 @@ def do_rhf(
         D_old = D
         D_dev = torch.as_tensor(D, dtype=F64, device=dev)
         with trace.span("rhf.fock"):
-            if stream:
-                # packed upper triangle, in f32 while far from convergence
-                # unless the prelude already converged the guess (JAX `:590-609`)
-                early = rms > 1e-3 and not prelude_guess
-                fp = _fock_build_stream(H_dev, D_dev, fock_consts, tk, tl, iu,
-                                        packed_f32=early)
-                F_built = _from_upper(fp, iu_h, n)
-            else:
-                F_dev = (fock_build_rows(H_dev, rows, D_dev, tk, tl) if sliced
-                         else fock_build(H_dev, eri_dev, D_dev))
-                F_built = F_dev.cpu().numpy()
-                trace.synced()
+            F_built = build(D_dev, rms)
 
     if result is None:
         F = _diis_step(diis, F_built, D, S)

@@ -1,5 +1,5 @@
-"""Sliced AO->MO transform of the streaming tier: the tri-packed AO ERI
--> the physicist CCSD slices, with no dense n^4 f64 tensor on the device.
+"""Sliced AO->MO transforms (which tier runs which: `methods/tiers.py`):
+the AO ERI -> the physicist CCSD slices, with no dense n^4 f64 tensor.
 
 Port of `afesp_tpu/methods/mo_slices.py`.  The packed store (0.93 GB at
 174 bf) is the only resident AO-ERI form: it is half-expanded once into
@@ -223,13 +223,13 @@ def _second_half(H: torch.Tensor, pairs: torch.Tensor, Cp: torch.Tensor,
     return torch.matmul(A.transpose(1, 2).contiguous(), Cq.T)  # (p, col, q)
 
 
-def ao_to_mo_slices_f64(ints, C: torch.Tensor, *, nocc: int) -> Slices:
+def ao_to_mo_slices_f64(ints, C: torch.Tensor, *, nocc: int, free_rows) -> Slices:
     """The sliced f64 transform (module docstring): the f64 pair-row
     table of `ints` (`IntStore.rows_on_device`, rows[pair(i,j), k*n + l]
     = (ij|kl), on C's device) and the MO coefficients C (rows = MO) ->
     the physicist Slices, v_vvvv included, every contraction an f64 GEMM
-    and no n^4 tensor held.  The table is freed (`free_device_rows`) once
-    the first half has read it; it is not an argument, so that no caller
+    and no n^4 tensor held.  The table is freed (`free_rows`) once the
+    first half has read it; it is not an argument, so that no caller
     holds it past that point."""
     with trace.span("mo.slices"):
         rows = ints.rows_on_device(C.device)
@@ -258,7 +258,7 @@ def ao_to_mo_slices_f64(ints, C: torch.Tensor, *, nocc: int) -> Slices:
                 blk[p0:p1] = Tv[:, c0:c1]
             del T, Tv
         del rows
-        ints.free_device_rows()
+        free_rows()
         if dev.type == "cuda":
             # v_vvvv, the largest allocation, is made with the table's
             # block given back, so that no freed block splits the card

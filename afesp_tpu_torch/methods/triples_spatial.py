@@ -406,11 +406,12 @@ def default_precision(dev: torch.device, nvirt: int, requested: str = "f64") -> 
     return "fused" if nvirt <= 128 else "tiled"
 
 
-def triples_tier(cfg: Config) -> str | None:
-    """The tier `ccsd_precision` names (JAX `do_ccsd_t_spatial`
-    `:530-549`): "pallas" and "fused" as named, None (default_precision)
-    for "f64" and "hybrid"."""
-    return cfg.ccsd_precision if cfg.ccsd_precision in ("pallas", "fused") else None
+def spatial_tier(cfg: Config, dev: torch.device, nvirt: int) -> str:
+    """The tier of `precision=None` (JAX `do_ccsd_t_spatial` `:530-549`):
+    "pallas" and "fused" as `ccsd_precision` names them, else the
+    `default_precision` of the request on `dev` at nvirt."""
+    named = cfg.ccsd_precision in ("pallas", "fused")
+    return cfg.ccsd_precision if named else default_precision(dev, nvirt, cfg.ccsd_precision)
 
 
 def cr_precision(cfg: Config, precision: str | None) -> str:
@@ -438,7 +439,7 @@ def do_ccsd_t_spatial(
     nocc, nvirt = sys_.nocc, sys_.nvirt
     chain = cr_precision(cfg, precision)
     if precision is None:
-        precision = triples_tier(cfg) or default_precision(dev, nvirt, cfg.ccsd_precision)
+        precision = spatial_tier(cfg, dev, nvirt)
     if precision not in PRECISIONS:
         raise ValueError(f"triples precision must be one of {PRECISIONS}, got {precision!r}")
     rep = rep or Reporter()

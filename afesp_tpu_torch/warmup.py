@@ -70,14 +70,13 @@ def libraries(sys_: dat.System, cfg: Config, dev: torch.device) -> list[str]:
     """The kernel libraries the driver's triples stage will load for this
     system and config on `dev`: the tier `driver.run_calculation` hands
     the triples function (the spin-orbital default, "fused" on a card;
-    the restricted `triples_tier` or `default_precision`)."""
+    the restricted `spatial_tier`)."""
     if dev.type != "cuda" or not cfg.wants_triples:
         return []
     if cfg.restricted:
-        from .methods.triples_spatial import default_precision, triples_tier
+        from .methods.triples_spatial import spatial_tier
 
-        tier = triples_tier(cfg) or default_precision(dev, sys_.nvirt, cfg.ccsd_precision)
-        name = _SPATIAL.get(tier)
+        name = _SPATIAL.get(spatial_tier(cfg, dev, sys_.nvirt))
     else:
         name = "triples_fused"
     return [name] if name else []

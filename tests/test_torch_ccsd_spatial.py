@@ -22,6 +22,7 @@ from afesp_tpu_torch import config as tcfg
 from afesp_tpu_torch.convert import from_jax
 from afesp_tpu_torch.io.report import Reporter
 from afesp_tpu_torch.methods import ccsd_spatial as tcc
+from afesp_tpu_torch.methods import tiers
 from afesp_tpu_torch.ops import cc_step as tstep
 
 F64 = torch.float64
@@ -234,3 +235,21 @@ def test_unported_ccsd_tier_raises(stages):
     with pytest.raises(AssertionError, match="slices and the vvvv limbs"):
         tcc.do_ccsd_spatial(st["sys_"], None, tc, st["hf"], Reporter(stream=io.StringIO()),
                             device="cpu")
+
+
+@pytest.mark.parametrize("precision, match", [
+    ("hybrid", "slices and the vvvv limbs"),
+    ("f64", "all-f64 ccsd_precision is not available"),
+])
+def test_the_stream_tier_refuses_what_it_cannot_run(stages, precision, match):
+    """Handed the streaming tier, CCSD needs the slices and the vvvv limbs,
+    and a digit-GEMM precision to read the limbs: without either it
+    raises an AssertionError."""
+    st = from_jax(device="cpu", sys_=stages["sys_"], hf=stages["hf"])
+    tc = tcfg.read_els_in(stages["wd"])
+    tc.ccsd_precision = precision
+    # placeholders: each refusal comes before they are read
+    slices, vvvv_B = object(), None if precision == "hybrid" else object()
+    with pytest.raises(AssertionError, match=match):
+        tcc.do_ccsd_spatial(st["sys_"], None, tc, st["hf"], Reporter(stream=io.StringIO()),
+                            device="cpu", slices=slices, vvvv_B=vvvv_B, tier=tiers.Tier("stream"))

@@ -22,7 +22,7 @@ from afesp_tpu.methods.triples_spinorb import do_ccsd_t_spinorb as jax_ccsd_t
 from afesp_tpu_torch.cli import main as cli_main
 from afesp_tpu_torch.driver import run_calculation
 from afesp_tpu_torch.io.report import Reporter
-from afesp_tpu_torch.methods import mp2 as tmp2
+from afesp_tpu_torch.methods import tiers as ttiers
 from afesp_tpu_torch.methods.triples_spinorb import do_ccsd_t_spinorb as port_ccsd_t
 from afesp_tpu_torch.parallel import mesh as pmesh
 
@@ -237,7 +237,7 @@ def test_dense_path_above_stream_nbasis(tmp_path, h2o, monkeypatch):
     H2O's CCSD_spatial runs in both, with equal breakdowns and CCSD corr
     within 1e-10."""
     monkeypatch.setattr(jmp2, "STREAM_NBASIS", 20)
-    monkeypatch.setattr(tmp2, "STREAM_NBASIS", 20)
+    monkeypatch.setattr(ttiers, "STREAM_NBASIS", 20)
     wd = _stage(tmp_path, h2o, "CCSD_spatial")
     jres, jtext = _run_jax(wd)
     res, text = _run_port(wd)

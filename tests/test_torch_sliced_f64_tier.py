@@ -1,7 +1,7 @@
 """The sliced f64 tier on the CPU: RHF with no dense AO tensor (the
 pair-row table's Fock build), the sliced f64 AO->MO transform and the
 f64 CCSD, CR chain and (T) on its slices, forced on the committed 58-bf
-H2O/cc-pVTZ through the tier rule's budget (`mp2.choose_tier`), with no
+H2O/cc-pVTZ through the tier rule's budget (`tiers.choose_tier`), with no
 environment variable.  Held to the port's dense f64 path, to the plain
 blocked reference (`tests/plain_rccsd_blocked.py`), and, piece by piece,
 to the dense Fock build and the dense transform's slices; the tier rule
@@ -27,6 +27,7 @@ from afesp_tpu_torch.io.report import Reporter
 from afesp_tpu_torch.methods import hf as thf
 from afesp_tpu_torch.methods import mo_slices
 from afesp_tpu_torch.methods import mp2 as tmp2
+from afesp_tpu_torch.methods import tiers
 from afesp_tpu_torch.methods.ccsd_spatial import make_slices
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -74,7 +75,7 @@ def sliced(pvtz):
     """The same calculation with the rule given a budget of one byte, and
     the transform's blocks small enough to make several vvvv chunks."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tmp2, "choose_tier", functools.partial(tmp2.choose_tier, budget_bytes=1))
+        mp.setattr(tiers, "choose_tier", functools.partial(tiers.choose_tier, budget_bytes=1))
         mp.setattr(mo_slices, "_F64_BLOCK_BYTES", 3e6)
         chunks = mo_slices.ao_to_mo_slices.vvvv_chunks
         res, record = run_port(pvtz)
@@ -155,14 +156,14 @@ def test_the_row_table_fock_build_is_the_dense_one(integrals):
 def test_the_f64_slices_are_the_dense_transforms(integrals, monkeypatch, block_bytes):
     """ao_to_mo_slices_f64 from the row table gives make_slices of the
     dense ao_to_mo, every slice within 1e-12 of its scale, v_vvvv in
-    one chunk or several; it frees the table it was handed."""
+    one chunk or several; it frees the table through `free_rows`."""
     sys_, ints, hf = integrals
     nocc = sys_.nel // 2
     monkeypatch.setattr(mo_slices, "_F64_BLOCK_BYTES", block_bytes)
     C = torch.as_tensor(hf.coeff)
     want = make_slices(tmp2.ao_to_mo(torch.as_tensor(ints.eri), C), nocc)
     before = mo_slices.ao_to_mo_slices.vvvv_chunks
-    got = mo_slices.ao_to_mo_slices_f64(ints, C, nocc=nocc)
+    got = mo_slices.ao_to_mo_slices_f64(ints, C, nocc=nocc, free_rows=ints.free_device_rows)
     chunks = mo_slices.ao_to_mo_slices.vvvv_chunks - before
     assert ints._rows_dev is None
     assert chunks > 1 if block_bytes < 1e8 else chunks == 1
@@ -184,8 +185,8 @@ def test_the_tier_rule_on_every_committed_configuration(config, precision, tier)
     the rule is dense unless a budget is given."""
     n = 58 if config == "h2o-ccpvtz" else json.loads(
         (ROOT / "gpubench" / "configs" / f"{config}.json").read_text())["nbasis"]
-    assert tmp2.choose_tier(n, precision, "cuda", budget_bytes=H100_BYTES) == tier
-    assert tmp2.choose_tier(n, precision, "cpu") == "dense"
+    assert tiers.choose_tier(n, precision, "cuda", budget_bytes=H100_BYTES) == tier
+    assert tiers.choose_tier(n, precision, "cpu") == "dense"
 
 
 def test_the_spans_and_the_counter(dense, sliced):
@@ -211,6 +212,6 @@ def test_the_spinorb_refusal_on_a_sliced_tier_names_the_rule(pvtz, tmp_path, mon
     shutil.copytree(pvtz, wd, symlinks=True)
     (wd / "els.in").write_text(EXPECTED["els_in"].replace("CRCCSD(T)_spatial",
                                                           "CCSD(T)_spinorb"))
-    monkeypatch.setattr(tmp2, "choose_tier", functools.partial(tmp2.choose_tier, budget_bytes=1))
-    with pytest.raises(ValueError, match=r"exceed the card's memory \(methods/mp2.choose_tier\)"):
+    monkeypatch.setattr(tiers, "choose_tier", functools.partial(tiers.choose_tier, budget_bytes=1))
+    with pytest.raises(ValueError, match=r"exceed the card's memory \(methods/tiers.choose_tier\)"):
         tdriver.run_calculation(wd, Reporter(stream=io.StringIO()), device="cpu")

@@ -43,6 +43,7 @@ from afesp_tpu_torch.io.report import Reporter
 from afesp_tpu_torch.methods import ccsd_spatial as tsp
 from afesp_tpu_torch.methods import hf as thf
 from afesp_tpu_torch.methods import mo_slices as tms
+from afesp_tpu_torch.methods import tiers as ttiers
 from afesp_tpu_torch.methods.triples_spatial import do_ccsd_t_spatial as port_ccsd_t_spatial
 
 _t = torch.from_numpy
@@ -262,7 +263,7 @@ def test_driver_stream_tier_matches_jax(tmp_path, h2o, monkeypatch, stream_fock)
     monkeypatch.setenv("AFESP_FORCE_STREAM", "1")
     if stream_fock:
         monkeypatch.setattr(jhf, "_TPU_FOCK_NBASIS", 20)
-        monkeypatch.setattr(thf, "_TPU_FOCK_NBASIS", 20)
+        monkeypatch.setattr(ttiers, "_TPU_FOCK_NBASIS", 20)
     wd = _stage(tmp_path, h2o, "CRCCSD(T)_spatial", STREAM)
     jres, jtext = _jax_run(wd)
     rep = Reporter(stream=io.StringIO())
