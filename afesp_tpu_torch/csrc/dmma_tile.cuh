@@ -1,5 +1,4 @@
-// The f64 tensor-core GEMM tile shared by K1's numerator
-// (triples_fused.cu) and K3's and K4's numerator (spatial_gemm.cuh):
+// The f64 tensor-core GEMM tile of K1's numerator (triples_fused.cu):
 // warp-level mma.sync m16n8k4 (DMMA; Hopper's wgmma has no f64 type, and
 // m8n8k4 runs at half the rate of m16n8k4 on the H100, PERF.md §6), fed
 // from a ring of shared-memory stages filled by 16-byte cp.async.
@@ -8,9 +7,12 @@
 // (row stride LDA) and B[k][n] as Bs[n][k] (row stride LDB); each warp
 // holds MT x NT m16n8 accumulators at (wm, wn) of the tile.  The kernel
 // brings its own stage loader (where each K row of A and B lies) and its
-// own epilogue (where C goes).  Every accumulator takes its K terms in a
-// fixed order, so two runs agree bit for bit.  Each .cu is built into its
-// own shared library, so every symbol here is static or inline.
+// own epilogue (where C goes).  The first STAGES - 1 stages are issued by
+// `prologue`, apart from the K loop, so that a block walking many tiles
+// can issue the next tile's first stages before it writes out the last
+// one.  Every accumulator takes its K terms in a fixed order, so two runs
+// agree bit for bit.  Each .cu is built into its own shared library, so
+// every symbol here is static or inline.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,11 +42,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The K loop of a block: STAGES - 1 stages in flight ahead of the one in
-// use.  load(as, bs, k0) issues, without committing, the copies of K rows
-// k0 .. k0 + BK into the stage at (as, bs).  On return acc holds the
-// warp's MT x NT tiles over all nk stages; fragment element q of tile
-// (mt, nt) is C[wm + 16 mt + g + 8 (q >> 1)][wn + 8 nt + 2 tg + (q & 1)]
+// The first STAGES - 1 stages of a tile's K loop: load(as, bs, k0)
+// issues, without committing, the copies of K rows k0 .. k0 + BK into
+// the stage at (as, bs).  The stages must no longer be read.
+template <int BK, int STAGES, class Load>
+__device__ __forceinline__ void prologue(double* As, double* Bs, int a_stage, int b_stage,
+                                         int nk, Load&& load) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(As + s * a_stage, Bs + s * b_stage, s * BK);
+    cp_async_commit();
+  }
+}
+
+// The K loop of a block, after its prologue: STAGES - 1 stages in flight
+// ahead of the one in use.  On return acc holds the warp's MT x NT tiles
+// over all nk stages, and every copy has landed; fragment element q of
+// tile (mt, nt) is C[wm + 16 mt + g + 8 (q >> 1)][wn + 8 nt + 2 tg + (q & 1)]
 // with g = lane / 4, tg = lane % 4.
 template <int MT, int NT, int BK, int LDA, int LDB, int STAGES, class Load>
 __device__ __forceinline__ void mainloop(double (&acc)[MT][NT][4], double* As, double* Bs,
@@ -60,11 +74,6 @@ __device__ __forceinline__ void mainloop(double (&acc)[MT][NT][4], double* As, d
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0;
 
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(As + s * a_stage, Bs + s * b_stage, s * BK);
-    cp_async_commit();
-  }
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();

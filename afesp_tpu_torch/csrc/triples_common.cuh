@@ -1,8 +1,9 @@
 // Shared device code of the spin-orbital triples kernels K1
-// (triples_fused.cu, its energy pass) and K2 (triples_finale.cu): the
-// walk of the energy reduction over (v, v, v) numerator panels and the
-// fixed-order sum of its per-block partials.  Each .cu is built into its
-// own shared library, so every symbol here is static.
+// (triples_fused.cu, its energy pass over spin blocks) and K2
+// (triples_finale.cu): the walk of the energy reduction over (v, v, v)
+// numerator panels and the fixed-order sum of its per-block partials.
+// Each .cu is built into its own shared library, so every symbol here is
+// static.
 //
 // Reduction (ccsd.f90:1897-1910, afesp_tpu/ops/triples_pallas.py
 // _finale_kernel), per panel p of a triple:
@@ -43,24 +44,29 @@ static_assert(kEnergyThreads == kReduceThreads, "one reduction tree");
 // panels and their three reads of an element meet in L2.
 static __device__ __forceinline__ int energy_b_ranges(int v) { return (v + kEB - 1) / kEB; }
 
-// The walk of one block over the NP panels xp (each (v, v, v), read as
-// above), b from b0 to b1 in the (a, c) tile at (a0, c0).  P(xp[q]) is
-// formed for each panel; P(x) is that of xp[0], and P(y) is
-// y.p(px, row, a, b): K2 reads y as a second panel (px[1]), K1 rebuilds
-// it from t1 and W.  y.begin(b) runs once a b step, after the barrier
-// that publishes the step's shared tile (and anything y staged before the
-// walk).  Returns this thread's sum.
+// The walk of one block over the NP panels (each (v, v, v), read as
+// above), b from b0 to b1 in the (a, c) tile at (a0, c0).  P(x) of panel
+// q is xabc[q][a,b,c] - xbac[q][b,a,c] - xcba[q][c,b,a]: K2 reads all
+// three from one panel, K1 from the three spin blocks of t3c that hold
+// them (each (v, v, v) with v the spin half), with the virtual levels of
+// a, b and c at ev_a, ev_b and ev_c.  P(x) is that of panel 0, and P(y)
+// is y.p(px, row, a, b): K2 reads y as a second panel (px[1]), K1
+// rebuilds it from t1 and W.  y.begin(b) runs once a b step, after the
+// barrier that publishes the step's shared tile (and anything y staged
+// before the walk).  Returns this thread's sum.
 template <int NP, class Y>
-static __device__ __forceinline__ double energy_walk(const double* const (&xp)[NP], Y& y,
-                                                     const double* __restrict__ ev, double ep,
-                                                     int v, int a0, int c0, int b0, int b1) {
+static __device__ __forceinline__ double energy_walk(
+    const double* const (&xabc)[NP], const double* const (&xbac)[NP],
+    const double* const (&xcba)[NP], Y& y, const double* __restrict__ ev_a,
+    const double* __restrict__ ev_b, const double* __restrict__ ev_c, double ep, int v, int a0,
+    int c0, int b0, int b1) {
   __shared__ double S[NP][2][kET][kET + 1];  // x[c', b, a'] at [c' - c0][a' - a0], two b's
   __shared__ double eva[kET];                // e_v at the tile's a
   const int tx = threadIdx.x % kET, ty = threadIdx.x / kET;
   const int c = c0 + tx;
   const bool cok = c < v;
-  const double evc = cok ? ev[c] : 0.0;
-  if (ty == kER - 1) eva[tx] = a0 + tx < v ? ev[a0 + tx] : 0.0;
+  const double evc = cok ? ev_c[c] : 0.0;
+  if (ty == kER - 1) eva[tx] = a0 + tx < v ? ev_a[a0 + tx] : 0.0;
 
   double nxt[NP][kRPT];  // x[c', b, a'] of the next b, read ahead of its use
 #pragma unroll
@@ -68,7 +74,7 @@ static __device__ __forceinline__ double energy_walk(const double* const (&xp)[N
 #pragma unroll
     for (int r = 0; r < kRPT; ++r) {
       const int cr = c0 + ty + kER * r, ar = a0 + tx;
-      nxt[q][r] = (cr < v && ar < v) ? xp[q][((long long)cr * v + b0) * v + ar] : 0.0;
+      nxt[q][r] = (cr < v && ar < v) ? xcba[q][((long long)cr * v + b0) * v + ar] : 0.0;
     }
 
   double acc = 0.0;
@@ -85,11 +91,12 @@ static __device__ __forceinline__ double energy_walk(const double* const (&xp)[N
 #pragma unroll
         for (int r = 0; r < kRPT; ++r) {
           const int cr = c0 + ty + kER * r, ar = a0 + tx;
-          nxt[q][r] = (cr < v && ar < v) ? xp[q][((long long)cr * v + b + 1) * v + ar] : 0.0;
+          nxt[q][r] =
+              (cr < v && ar < v) ? xcba[q][((long long)cr * v + b + 1) * v + ar] : 0.0;
         }
     }
     y.begin(b);
-    const double evb = ev[b];
+    const double evb = ev_b[b];
     const long long bv = (long long)b * v;
 #pragma unroll
     for (int r = 0; r < kRPT; ++r) {
@@ -98,7 +105,7 @@ static __device__ __forceinline__ double energy_walk(const double* const (&xp)[N
       double px[NP];
 #pragma unroll
       for (int q = 0; q < NP; ++q)
-        px[q] = xp[q][((long long)a * v + b) * v + c] - xp[q][(bv + a) * v + c] -
+        px[q] = xabc[q][((long long)a * v + b) * v + c] - xbac[q][(bv + a) * v + c] -
                 S[q][b & 1][tx][row];
       const double py = y.p(px, row, a, b);
       const double d = ep - eva[row] - evb - evc;
@@ -106,6 +113,14 @@ static __device__ __forceinline__ double energy_walk(const double* const (&xp)[N
     }
   }
   return acc;
+}
+
+// The walk with each permutation read from the panel itself (K2).
+template <int NP, class Y>
+static __device__ __forceinline__ double energy_walk(const double* const (&xp)[NP], Y& y,
+                                                     const double* __restrict__ ev, double ep,
+                                                     int v, int a0, int c0, int b0, int b1) {
+  return energy_walk<NP>(xp, xp, xp, y, ev, ev, ev, ep, v, a0, c0, b0, b1);
 }
 
 // Fixed-tree sum of the block's kEnergyThreads values; thread 0 writes

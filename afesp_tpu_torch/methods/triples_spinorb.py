@@ -15,7 +15,9 @@ vanishes on diagonals, so 6x weight on C(o,3) triples replaces the
 reference's o^3 cube).  Four tiers:
 
   "fused"  — K1, `ops/triples_cuda.triples_fused`: the numerator
-             products and the reduction in hand-written CUDA, f64;
+             products and the reduction in hand-written CUDA, f64, over
+             the Sz-allowed spin blocks only (the amplitudes and slices
+             of an RHF reference, whose forbidden blocks are exact zeros);
   "pallas" — the numerator panels as f64 torch einsums per chunk
              (`_chunk_panels`), then K2, `ops/triples_cuda.triples_finale`
              (JAX's panels here are f32; the port's K2 is an f64 kernel,

@@ -48,7 +48,11 @@ captured, the calls served by replaying one), `mo_slices.vvvv_chunks`
 0 on the dense tier), `spatial_gemm.launches`, `spatial_gemm.issued_macs`,
 `spatial_gemm.useful_macs` (ops/triples_spatial_cuda.py: K3's and K4's
 group GEMM launches on a card, the multiply-adds their tiles issue and
-those of the true shapes; their ratio is the GEMM's padding).
+those of the true shapes; their ratio is the GEMM's padding),
+`triples_fused.issued_macs`, `triples_fused.cube_macs`
+(ops/triples_cuda.py: the multiply-adds K1's spin-block tiles issue on a
+card, padding included, and those the dense design issued for the same
+triples; their ratio is the share of the dense work K1 still does).
 """
 
 from __future__ import annotations

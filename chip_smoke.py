@@ -23,7 +23,9 @@ prints one line with its wall time:
      kernel with nvcc, all five sources in parallel, timed (the
      `-Xptxas -v` report is printed);
   3. each kernel against its plain PyTorch version on the card, on
-     seeded random inputs: K1 and K2 at the spin-orbital path's shapes;
+     seeded random inputs (the spin-orbital ones projected onto the
+     Sz-allowed spin blocks, as K1 takes them): K1 and K2 at the
+     spin-orbital path's shapes;
      K3, K4 and K5 at the spatial path's (o=5, v=53), the 116-bf dimer's
      (o=10, v=106) and, for K4, the 174-bf trimer's (o=15, v=159), with
      all variants on (T, R, CR).  Relative error <= 1e-11 of each sum
@@ -36,7 +38,9 @@ prints one line with its wall time:
      between their numerator GEMMs (and each of the three groups), their
      reduction and their operand and host work; then K1 alone at the
      spin-orbital dimer's shape (o=20, v=212, 1140 strict triples), held
-     and timed the same way; then the digit GEMM (`digit_gemm*`):
+     and timed the same way; each K1 row's bound is the Sz-allowed
+     blocks' (gpubench's count: the work K1 does), with the dense cube's
+     beside it, and its issued over dense multiply-adds; then the digit GEMM (`digit_gemm*`):
      bit for bit against its CPU run at the pVTZ paths' shapes on every
      flat-scale route, and timed at the dimer's vvvv shapes against
      f64 torch.matmul, beside its int8 bound;
@@ -329,8 +333,13 @@ def cuda_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
 
 def random_problem(torch, dev, o: int, v: int, seed: int = 7):
     """Antisymmetry-respecting random (T) inputs, as in
-    tests/test_triples_pallas.py, made with numpy from a seed."""
+    tests/test_triples_pallas.py, made with numpy from a seed, in block
+    spin order and projected onto the Sz-allowed spin blocks as an RHF
+    reference leaves them (ops/triples_cuda.py sz_project).  K1 takes no
+    other input."""
     import numpy as np
+
+    from afesp_tpu_torch.ops.triples_cuda import sz_project
 
     rng = np.random.default_rng(seed)
     t1 = rng.standard_normal((o, v)) * 0.02
@@ -348,7 +357,7 @@ def random_problem(torch, dev, o: int, v: int, seed: int = 7):
     e[o:] += 4.0
     return tuple(
         torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64, device=dev)
-        for x in (t1, t2, vovv, ovoo, oovv, e[:o], e[o:])
+        for x in sz_project(t1, t2, vovv, ovoo, oovv, e[:o], e[o:])
     )
 
 
@@ -358,10 +367,31 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def k1_bound(o: int, v: int, n: int, args) -> tuple[float, str]:
-    """K1 over n triples: 2 v^3 3(v+o) GEMM flops and ~16 an element for
-    t3d, P and the sum; inputs read once, the sum written once."""
+    """K1 over n triples of the dense cube: 2 v^3 3(v+o) GEMM flops and
+    ~16 an element for t3d, P and the sum; inputs read once, the sum
+    written once."""
     in_bytes = sum(x.numel() * 8 for x in args) + 3 * n * 8
     return bound_ms(n * v**3 * (6 * (v + o) + 5 + 11), in_bytes + 8)
+
+
+def k1_allowed_bound(o: int, v: int) -> tuple[float, str]:
+    """K1 over all strict triples, counted over the Sz-allowed spin blocks
+    an RHF reference leaves nonzero: gpubench's count
+    (harness/counts.py spinorb_triples_flops(strict=True) and
+    spinorb_triples_bytes), the one the benchmark's
+    spinorb_triples_roofline_pct reads."""
+    from gpubench.harness import counts
+
+    return bound_ms(counts.spinorb_triples_flops(o, v, strict=True),
+                    counts.spinorb_triples_bytes(o, v))
+
+
+def k1_macs(K, run) -> float:
+    """K1's issued over dense multiply-adds (its counters) in one run()."""
+    f = K.triples_fused
+    before = (f.issued_macs, f.cube_macs)
+    run()
+    return (f.issued_macs - before[0]) / (f.cube_macs - before[1])
 
 
 K1_SOURCE = "afesp_tpu_torch/csrc/triples_fused.cu"
@@ -386,7 +416,7 @@ def k1_dimer_check(torch, dev, o: int = 20, v: int = 212, args=None, label: str 
     random inputs, or on `args` (the path's own): held against its plain
     version to KERNEL_RTOL, two launches bit-identical, kernel ms over 2
     launches after a warm-up, the plain version's and the all-torch f64
-    tier's ms over one launch each, its bound and its split."""
+    tier's ms over one launch each, its bounds and its split."""
     from afesp_tpu_torch.methods import triples_spinorb as T
     from afesp_tpu_torch.ops import triples_cuda as K
 
@@ -413,7 +443,9 @@ def k1_dimer_check(torch, dev, o: int = 20, v: int = 212, args=None, label: str 
                 plain_ms=cuda_ms(torch, lambda: K.triples_fused_plain(*args, *idx), 1,
                                  warm=False),
                 library_ms=cuda_ms(torch, library, 1, warm=False),
-                bound=k1_bound(o, v, n, args), split_ms=k1_split(K, args, idx, 1))
+                bound=k1_allowed_bound(o, v), dense_bound=k1_bound(o, v, n, args),
+                issued_over_cube=k1_macs(K, lambda: K.triples_fused(*args, *idx)),
+                split_ms=k1_split(K, args, idx, 1))
 
 
 def k2_row(torch, dev, args, o: int, v: int, label: str = "") -> dict:
@@ -476,7 +508,9 @@ def kernel_checks(torch, dev, o: int, v: int) -> dict:
         plain_ms=cuda_ms(torch, lambda: K.triples_fused_plain(*args, ii, jj, kk)),
         library_ms=cuda_ms(torch, library),
         split_ms=k1_split(K, args, (ii, jj, kk)),
-        bound=k1_bound(o, v, n, args), shape=f"o={o}, v={v}, {n} strict triples",
+        bound=k1_allowed_bound(o, v), dense_bound=k1_bound(o, v, n, args),
+        issued_over_cube=k1_macs(K, lambda: K.triples_fused(*args, ii, jj, kk)),
+        shape=f"o={o}, v={v}, {n} strict triples",
         source=K1_SOURCE, replaces=K1_REPLACES,
     )
 
@@ -2626,7 +2660,11 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"], "shape": r["shape"],
             "bound_share": b_ms / r["ms"], "mesh_launches": MESH_LAUNCHES.get(name, 0),
-            **{k: r[k] for k in ("split_ms", "group_ms") if k in r},
+            **{k: r[k] for k in ("split_ms", "group_ms", "issued_over_cube") if k in r},
+            # K1: the dense cube's bound beside the Sz-allowed blocks' one
+            **({"dense_bound_ms": r["dense_bound"][0],
+                "dense_bound_share": r["dense_bound"][0] / r["ms"]}
+               if "dense_bound" in r else {}),
         })
     # every path's metrics (cc_metrics), f64 and hybrid
     print(json.dumps({"paths": paths}), flush=True)

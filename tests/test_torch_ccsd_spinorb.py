@@ -132,3 +132,22 @@ def test_amplitude_checkpoint_round_trip(stages, tmp_path):
     assert "Reading previous CC amplitudes as guess..." in rep.stream.getvalue()
     assert again.converged and again.iterations < first.iterations
     assert abs(again.e_ccsd - first.e_ccsd) < 1e-9
+
+
+@pytest.mark.parametrize("precision", ["f64", "hybrid"])
+def test_ccsd_leaves_forbidden_spin_blocks_zero(stages, precision, tmp_path):
+    """The premise of K1 (ops/triples_cuda.triples_fused), which raises on
+    a non-zero in a forbidden spin block: the port's spin-orbital CCSD,
+    at f64 and on the digit-GEMM ("hybrid") iteration, leaves every
+    Sz-forbidden block of t1, t2, vovv, ovoo and oovv exactly zero."""
+    from afesp_tpu_torch.ops.triples_cuda import sz_violations
+
+    st = from_jax(device="cpu", sys_=stages["sys_"], hf=stages["hf"])
+    tc = tcfg.read_els_in(stages["wd"])
+    tc.ccsd_precision = precision
+    eri_mo = torch.as_tensor(np.array(stages["eri_mo"]), dtype=F64)
+    res = tcc.do_ccsd_spinorb(st["sys_"], eri_mo, tc, st["hf"], Reporter(stream=io.StringIO()),
+                              tmp_path, device="cpu")
+    assert res.converged and res.precision_used == precision
+    sl = res.slices
+    assert sz_violations(t1=res.t1, t2=res.t2, vovv=sl.vovv, ovoo=sl.ovoo, oovv=sl.oovv) == []

@@ -37,9 +37,13 @@ def _card() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def _problem(dev, o, v, seed=7):
-    args = tuple(torch.as_tensor(x, dtype=F64, device=dev)
-                 for x in random_triples_problem(o, v, seed))
+def _problem(dev, o, v, seed=7, sz=False):
+    """Seeded (T) inputs on dev and the strict triples; with sz, projected
+    onto the Sz-allowed spin blocks (what K1 takes, as an RHF reference
+    leaves them)."""
+    args = random_triples_problem(o, v, seed)
+    args = K.sz_project(*args) if sz else args
+    args = tuple(torch.as_tensor(x, dtype=F64, device=dev) for x in args)
     idx = tuple(torch.as_tensor(x, dtype=torch.long, device=dev) for x in T.strict_triple_list(o))
     return args, idx
 
@@ -47,15 +51,17 @@ def _problem(dev, o, v, seed=7):
 # (o, v): the small test shape, the H2O/cc-pVTZ shape, and nvirt > 128
 # (the TPU kernel's cap, which K1 does not have)
 SHAPES = [(6, 10), (10, 106), (4, 130)]
-# K1 also at the spin-orbital dimer's shape (1140 triples, 44 chunks) and
-# at ragged ones: v not a multiple of 8 and v*v odd, and v + o odd too
-K1_SHAPES = SHAPES + [(20, 212), (5, 37), (4, 37)]
+# K1's shapes, even as its spin blocks need: the small test shape, the
+# H2O/cc-pVTZ shape, nvirt > 128, the spin-orbital dimer's (1140 triples,
+# 2940 block rows, 16 chunks), and v/2 = 37 (not a multiple of 8,
+# (v/2)^2 odd), with v/2 + o/2 odd in the last (K padded a term)
+K1_SHAPES = [(6, 10), (10, 106), (4, 130), (20, 212), (10, 74), (4, 74)]
 
 
 @pytest.mark.parametrize("o,v", K1_SHAPES)
 def test_k1_kernel_matches_plain(o, v):
     dev = _card()
-    args, idx = _problem(dev, o, v)
+    args, idx = _problem(dev, o, v, sz=True)
     before = K.triples_fused.launches
     got = K.triples_fused(*args, *idx)
     again = K.triples_fused(*args, *idx)
@@ -67,7 +73,25 @@ def test_k1_kernel_matches_plain(o, v):
     assert abs(float(got) - float(want)) <= 1e-11 * abs(float(want))
 
 
-# K2 also at the spin-orbital dimer's shape and at the ragged ones of K1
+@pytest.mark.parametrize("tensor,where", [("t2", (0, 1, 2, 8)), ("vovv", (0, 4, 1, 2))])
+def test_k1_refuses_a_forbidden_spin_block(tensor, where):
+    """One non-zero element in an Sz-forbidden block of t2 or vovv makes
+    K1 raise: it computes the allowed blocks only, with no dense
+    fallback."""
+    dev = _card()
+    args, idx = _problem(dev, 6, 10, sz=True)
+    args = list(args)
+    pos = {"t2": 1, "vovv": 2}[tensor]
+    args[pos] = args[pos].clone()
+    args[pos][where] = 1e-3
+    before = K.triples_fused.launches
+    with pytest.raises(ValueError, match=f"forbidden spin block of {tensor}"):
+        K.triples_fused(*args, *idx)
+    assert K.triples_fused.launches == before
+
+
+# K2 also at the spin-orbital dimer's shape and at ragged ones: v not a
+# multiple of 8 and v*v odd, and v + o odd too
 K2_SHAPES = SHAPES + [(20, 212), (5, 37), (4, 37)]
 
 
@@ -94,7 +118,7 @@ def test_k2_kernel_matches_plain(o, v):
 
 def test_wrappers_check_their_arguments():
     dev = _card()
-    args, idx = _problem(dev, 6, 10)
+    args, idx = _problem(dev, 6, 10, sz=True)
     with pytest.raises(ValueError, match="float64"):
         K.triples_fused(args[0].float(), *args[1:], *idx)
     with pytest.raises(ValueError, match="contiguous"):
@@ -611,8 +635,7 @@ def _mesh_kernel_case(kernel: str, mesh):
                "K4": S.triples_tiled_spatial, "K5": S.triples_finale_spatial}[kernel]
     if kernel in ("K1", "K2"):
         o, v = 6, 40
-        args = tuple(torch.as_tensor(x, dtype=F64, device=dev)
-                     for x in random_triples_problem(o, v))
+        args, _ = _problem(dev, o, v, sz=True)
         tier = "fused" if kernel == "K1" else "pallas"
         ii, jj, kk, clen = T.strict_plan(o, v)
         if tier == "fused":
@@ -775,11 +798,11 @@ def test_spinorb_hybrid_tier_on_the_card_matches_the_cpu(o, v):
     assert torch.get_float32_matmul_precision() == "highest"
     out = {}
     for d in ("cpu", dev):
-        args, _ = _problem(d, o, v)
+        args, _ = _problem(d, o, v, sz=True)
         ii, jj, kk, clen = T.strict_plan(o, v, "hybrid")
         idx = tuple(torch.as_tensor(x, dtype=torch.long, device=d) for x in (ii, jj, kk))
         out[str(d)] = float(T._triples_total_strict(*args, *idx, clen=clen, precision="hybrid"))
-    args, idx = _problem(dev, o, v)
+    args, idx = _problem(dev, o, v, sz=True)
     fused = float(T._triples_total_strict(*args, *idx, clen=len(idx[0]), precision="fused"))
     assert abs(out[str(dev)] - out["cpu"]) < 1e-9
     assert abs(out[str(dev)] - fused) <= F32_REL * abs(fused) and out[str(dev)] != fused

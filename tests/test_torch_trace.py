@@ -141,7 +141,8 @@ def test_a_counter_lands_in_the_innermost_open_span(recording, monkeypatch):
                                 "digit_graph.calls", "digit_graph.captures",
                                 "digit_graph.replays", "mo_slices.vvvv_chunks",
                                 "spatial_gemm.launches", "spatial_gemm.issued_macs",
-                                "spatial_gemm.useful_macs", "work.launches"}
+                                "spatial_gemm.useful_macs", "triples_fused.issued_macs",
+                                "triples_fused.cube_macs", "work.launches"}
 
 
 def test_the_group_gemm_counters_are_registered():
@@ -153,6 +154,17 @@ def test_the_group_gemm_counters_are_registered():
     for attr in ("launches", "issued_macs", "useful_macs"):
         assert trace._counters[f"spatial_gemm.{attr}"] == (S.spatial_gemm, attr)
         assert getattr(S.spatial_gemm, attr) == 0
+
+
+def test_the_k1_counters_are_registered():
+    """The multiply-adds K1's spin-block tiles issue and those the dense
+    design issued (ops/triples_cuda.py `triples_fused`) are registered
+    counters, at 0 off the card."""
+    from afesp_tpu_torch.ops import triples_cuda as K
+
+    for attr in ("issued_macs", "cube_macs"):
+        assert trace._counters[f"triples_fused.{attr}"] == (K.triples_fused, attr)
+        assert getattr(K.triples_fused, attr) == 0
 
 
 def test_enable_and_disable_are_idempotent():

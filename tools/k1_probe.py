@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Two measurements behind the design of K1 (`csrc/triples_fused.cu`) on
-one NVIDIA H100.  Needs a CUDA device and nvcc; imports no jax.
+"""Measurements behind the design of K1 (`csrc/triples_fused.cu`) on one
+NVIDIA H100.  Needs a CUDA device and nvcc; imports no jax.
 
     python3 tools/k1_probe.py dmma
     python3 tools/k1_probe.py split --src-dir DIR [--shape 10,106 --shape 20,212]
+    python3 tools/k1_probe.py current [--tree DIR ...] [--shape 20,212] [--reps 3]
 
 `dmma`: for each f64 `mma.sync` shape of sm_90 (m8n8k4, m16n8k4,
 m16n8k8, m16n8k16), whether nvcc builds it for sm_90a, whether the
@@ -16,12 +17,26 @@ the first K1 design (`numerator_kernel`, then the shared
 `triples::finale_partials_kernel`), by CUDA events around each launch.
 DIR holds that design's `triples_fused.cu` and `triples_common.cuh`
 (`git show 0fa1073:afesp_tpu_torch/csrc/triples_fused.cu`); a harness
-includes the source, so its kernels are reached as they are.  The inputs
-are `chip_smoke.random_problem`'s at each (o, v); the chunk is the
-first of near-equal chunks whose t3c and t3d fit FUSED_SCRATCH_BYTES,
-as that design cut them.
+includes the source, so its kernels are reached as they are.  The chunk
+is the first of near-equal chunks whose t3c and t3d fit
+FUSED_SCRATCH_BYTES, as that design cut them.
 
-Each prints one line per result and `nvidia-smi`'s name and power limit.
+`current`: the package's K1 (`ops/triples_cuda.triples_fused`) of each
+tree DIR (default: this one; give a parent and this tree, e.g. DIR,
+., ., DIR, to compare two designs in one call), each in a process of its
+own with that tree alone on the path and the package's file printed
+beside its numbers, on inputs this process writes once a shape: the
+call's ms by CUDA events (`--reps` calls after a warm-up), the
+numerator's and the energy pass's ms summed over the chunks (its
+`split`), the multiply-adds issued over the dense design's (its
+counters, where the tree has them), and its share of the dense cube's
+bound and of the Sz-allowed blocks' bound
+(gpubench's `spinorb_triples_flops(strict=True)`, what the benchmark's
+`spinorb_triples_roofline_pct` reads).
+
+The inputs are `chip_smoke.random_problem`'s at each (o, v): seeded and
+projected onto the Sz-allowed spin blocks, as K1 takes them.  Each prints
+one line per result and `nvidia-smi`'s name and power limit.
 """
 
 from __future__ import annotations
@@ -242,6 +257,79 @@ def split(torch, work: Path, src_dir: Path, shapes: list[tuple[int, int]]) -> No
         del L, R, t3c, t3d
 
 
+CURRENT_SRC = r"""
+import json, sys
+import torch
+import afesp_tpu_torch
+from afesp_tpu_torch.methods import triples_spinorb as T
+from afesp_tpu_torch.ops import triples_cuda as K
+
+path, reps = sys.argv[1], int(sys.argv[2])
+dev = torch.device("cuda", 0)
+args = tuple(x.to(dev) for x in torch.load(path))
+o = args[0].shape[0]
+idx = tuple(torch.as_tensor(x, dtype=torch.long, device=dev) for x in T.strict_triple_list(o))
+run = lambda **kw: K.triples_fused(*args, *idx, **kw)
+got = run()
+torch.cuda.synchronize()
+f = K.triples_fused
+before = (getattr(f, "issued_macs", 0), getattr(f, "cube_macs", 0))
+e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+e0.record()
+for _ in range(reps):
+    run()
+e1.record()
+e1.synchronize()
+ms = e0.elapsed_time(e1) / reps
+after = (getattr(f, "issued_macs", 0), getattr(f, "cube_macs", 0))
+split = []
+run(split=split)
+print(json.dumps(dict(
+    package=afesp_tpu_torch.__file__, e=float(got).hex(), ms=ms,
+    numerator_ms=sum(s[0] for s in split), energy_ms=sum(s[1] for s in split),
+    chunks=len(split),
+    issued_over_cube=(after[0] - before[0]) / (after[1] - before[1]) if after[1] > before[1]
+    else None, peak_gb=torch.cuda.max_memory_allocated() / 1e9)))
+"""
+
+
+def current(torch, work: Path, trees: list[Path], shapes: list[tuple[int, int]],
+            reps: int) -> None:
+    """One process a tree and shape, with the tree's package first on the
+    path.  This process makes the inputs once a shape (this tree's
+    chip_smoke) and hands every tree the same file; the bounds are this
+    tree's too.  Each line names the package it timed."""
+    import json
+    import os
+
+    from chip_smoke import k1_allowed_bound, k1_bound, random_problem
+
+    for o, v in shapes:
+        args = random_problem(torch, torch.device("cpu"), o, v)
+        path = work / f"k1_inputs_{o}_{v}.pt"
+        torch.save(args, path)
+        n = o * (o - 1) * (o - 2) // 6
+        dense, allowed = k1_bound(o, v, n, args)[0], k1_allowed_bound(o, v)[0]
+        del args
+        for tree in trees:
+            env = dict(os.environ, PYTHONPATH=str(tree))
+            # run from the tree: `python -c` puts the working directory first
+            p = subprocess.run([sys.executable, "-c", CURRENT_SRC, str(path), str(reps)],
+                               cwd=tree, capture_output=True, text=True, env=env,
+                               timeout=1200)
+            line = (p.stdout.strip().splitlines() or [""])[-1]
+            try:
+                r = json.loads(line)
+                r.update(o=o, v=v, dense_bound_ms=dense, dense_share=dense / r["ms"],
+                         allowed_bound_ms=allowed, allowed_share=allowed / r["ms"])
+                line = json.dumps(r)
+            except (ValueError, KeyError):
+                pass
+            print(f"current tree={tree} rc={p.returncode} {line}", flush=True)
+            if p.returncode:
+                print(p.stderr[-4000:], flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -252,6 +340,12 @@ def main(argv=None) -> int:
     sp.add_argument("--src-dir", type=Path, required=True)
     sp.add_argument("--shape", action="append", default=None,
                     help="o,v (repeatable; default 10,106 and 20,212)")
+    cp = sub.add_parser("current")
+    cp.add_argument("--tree", type=Path, action="append", default=None,
+                    help="a checkout whose package to time (repeatable; default this one)")
+    cp.add_argument("--shape", action="append", default=None,
+                    help="o,v (repeatable; default 20,212)")
+    cp.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: needs a CUDA device", file=sys.stderr)
@@ -261,7 +355,11 @@ def main(argv=None) -> int:
                          timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
     with tempfile.TemporaryDirectory(prefix="k1_probe_") as tmp:
-        if args.cmd == "dmma":
+        if args.cmd == "current":
+            shapes = [tuple(int(x) for x in s.split(",")) for s in (args.shape or ["20,212"])]
+            current(torch, Path(tmp), [t.resolve() for t in (args.tree or [REPO])], shapes,
+                    args.reps)
+        elif args.cmd == "dmma":
             dmma(torch, Path(tmp))
         else:
             shapes = [tuple(int(x) for x in s.split(",")) for s in
